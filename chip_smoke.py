@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (pyscf_mpcc_tpu_torch) on one GPU.
+
+Run from the root of a checkout on a machine with an NVIDIA H100 and nvcc:
+
+    python3 chip_smoke.py
+
+It builds the hand-written CUDA kernel from ops/csrc, then runs:
+
+  0. environment: versions, card, TF32 flags (asserted off), kernel build;
+  1. the (T) epilogue kernel against its plain PyTorch version on the
+     card: random small problems in fp64, and one tile at the (H2O)8
+     shape in fp32, with timings;
+  2. pinned H2O/cc-pVDZ energies in fp64 on the card (incore integrals):
+     E(CCSD) and E(T), the latter through the CUDA kernel;
+  3. the DF main path through the user entry points,
+     RHF(mol).density_fit().run() -> CCSD(mf, device=cuda).run()
+     -> .ccsd_t(), in fp32, against the same calls in fp64;
+  4. the (H2O)8/cc-pVTZ frozen-core shape (nocc=32, nvir=424,
+     naux=1216) with synthetic DF integrals: CCSD sweep time, rate and
+     peak memory, an fp32-vs-fp64 sweep check, and a 64-tile (T) probe.
+
+Every phase raises on failure.  The last lines are the kernel record,
+the card's name and power limit, and {"ok": true, "device": {...}}.
+Without a CUDA device, or without the repository beside it, the script
+exits non-zero and prints no result.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# pinned reference values (the JAX package's tests/test_rccsd.py and
+# tests/test_ccsd_t.py, from the reference's own pins)
+E_CCSD_SYM = -0.2133432312951
+E_T_TILT = -0.0033300722704016289
+GEOMS = {
+    "sym": [[8, (0., 0., 0.)], [1, (0., -0.757, 0.587)],
+            [1, (0., 0.757, 0.587)]],
+    "tilt": [[8, (0., 0., 0.)], [1, (0., -0.957, 0.587)],
+             [1, (0.2, 0.757, 0.487)]],
+}
+# (H2O)8/cc-pVTZ frozen core, the JAX package's production shape
+NOCC, NVIR, NAUX, TILE = 32, 424, 1216, 8
+NPROBE = 64
+# fp64 kernel vs plain: identical inputs, only the summation order differs
+RTOL_FP64 = 1e-10
+# fp32 tile at the (H2O)8 shape: both sides round W, V and Z in fp32
+# (unit roundoff 6e-8) along different summation orders; the tile energy
+# is a sum of mostly same-signed terms, so its relative error stays near
+# 1e-6; 1e-5 leaves a 10x margin
+RTOL_TILE_FP32 = 1e-5
+# fp32 vs fp64 CCSD sweep: relative t2 difference; true fp32 GEMMs give
+# ~1e-6, a TF32 matmul ~1e-3, so 1e-4 separates the two
+RTOL_SWEEP_FP32 = 1e-4
+# fp32 vs fp64 main path (the issue's acceptance bound)
+ATOL_MAIN_FP32 = 1e-6
+
+
+def say(phase, msg, **kw):
+    extra = " ".join(f"{k}={v}" for k, v in kw.items())
+    print(f"[phase {phase}] {msg} {extra}".rstrip(), flush=True)
+
+
+def nvidia_smi(query):
+    """First line of nvidia-smi's csv answer to --query-gpu=query."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+
+# sampled beside the timed phases: a card below its clocks or power runs
+# slower, and the timings are read against these
+CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
+
+
+def cuda_ms(torch, fn, n):
+    """Mean device milliseconds of fn over n launches (after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from pyscf_mpcc_tpu import config
+    from pyscf_mpcc_tpu.gto import native
+    from pyscf_mpcc_tpu_torch import gto, testing
+    from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd
+    from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+    from pyscf_mpcc_tpu_torch.cc.eris import RERIs
+    from pyscf_mpcc_tpu_torch.lib import device as devpol
+    from pyscf_mpcc_tpu_torch.lib import memory
+    from pyscf_mpcc_tpu_torch.ops import _build
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    from pyscf_mpcc_tpu_torch.scf import RHF
+
+    f64, f32 = torch.float64, torch.float32
+    dev = torch.device("cuda")
+
+    # ---- phase 0: environment --------------------------------------------
+    smi = nvidia_smi("name,power.limit").strip()
+    devpol.set_fp32_precision()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    t0 = time.perf_counter()
+    _build.load("triples_combine")
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in
+             _build.build_info["triples_combine"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    say(0, "env", torch=torch.__version__, cuda=torch.version.cuda,
+        card=json.dumps(smi), gpus=torch.cuda.device_count(),
+        native_integrals=native.available(),
+        kernel_build_s=f"{build_s:.2f}")
+    for ln in ptxas:
+        say(0, "ptxas", line=json.dumps(ln))
+    say(0, "clocks", sm_max_power_temp=json.dumps(nvidia_smi(CLOCKS)))
+
+    # ---- phase 1: kernel against its plain version -----------------------
+    nchk = 0
+    for nocc in (3, 5):
+        for mode in (None, "exclude_active", "only_active"):
+            for K in (1, 4):
+                t1, t2, er = testing.triples_tensors(
+                    *testing.random_triples_problem(
+                        nocc, 7, 11 + nocc, naux=11 if K == 4 else None),
+                    dev, f64)
+                act = dict(act_hole=[0, 2], act_particle=[1, 3, 4]) \
+                    if mode else dict(act_hole=None, act_particle=None)
+                big = ccsd_t._prepare(t1, t2, er, 3, f64, act["act_hole"],
+                                      act["act_particle"], 1.0, "fused")
+                prep = ccsd_t.make_prep_fused(big)
+                eijk, actocc = ccsd_t.fused_shared(big)
+                trips = ccsd_t._tile_triples(big["nvp"] // 3)
+                out = ccsd_t.stack_prep([prep(abc) for abc in trips[:K]])
+                kw = dict(actv=out[10], actocc=actocc, act_mode=mode) \
+                    if mode else {}
+                args = (*out[:8], eijk, *out[8:10])
+                e_k = tc.tile_energy_fused_chunk(*args, **kw)
+                e_p = tc.tile_energy_fused_reference_chunk(*args, **kw)
+                torch.cuda.synchronize()
+                if not torch.isfinite(e_k).all():
+                    raise RuntimeError("non-finite kernel energies")
+                torch.testing.assert_close(e_k, e_p, rtol=RTOL_FP64,
+                                           atol=1e-14)
+                nchk += 1
+    # fp64 at nocc=30 runs the kernel's unstaged form (W exceeds smem)
+    t1, t2, er = testing.triples_tensors(
+        *testing.random_triples_problem(30, 4, 9), dev, f64)
+    big = ccsd_t._prepare(t1, t2, er, 2, f64, None, None, 1.0, "fused")
+    out = ccsd_t.make_prep_fused(big)((1, 1, 0))
+    args = (*out[:8], ccsd_t.fused_shared(big)[0], *out[8:10])
+    torch.testing.assert_close(tc.tile_energy_fused(*args),
+                               tc.tile_energy_fused_reference(*args),
+                               rtol=RTOL_FP64, atol=1e-14)
+    nchk += 1
+    say(1, "random problems fp64 ok", cases=nchk, rtol=RTOL_FP64)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    beris = testing.synthetic_eris(NOCC, NVIR, NAUX, device=dev, dtype=f32,
+                                   generator=gen, build_ovvv=False)
+    _, bt1, bt2 = rccsd.init_amps(beris)
+    big = ccsd_t._prepare(bt1, bt2, beris, TILE, f32, None, None, 1.0,
+                          "fused")
+    out = ccsd_t.make_prep_fused(big)((5, 3, 1))
+    eijk, _ = ccsd_t.fused_shared(big)
+    args = (*out[:8], eijk, *out[8:10])
+    del big
+    n0 = tc.launch_count
+    e_k = float(tc.tile_energy_fused(*args))
+    e_p = float(tc.tile_energy_fused_reference(*args))
+    e_64 = float(tc.tile_energy_fused_reference(
+        *[[w.double() for w in a] if isinstance(a, list)
+          else (a.double() if a.is_floating_point() else a) for a in args]))
+    tile_err = abs(e_k - e_p)
+    if not (tile_err <= RTOL_TILE_FP32 * abs(e_p)):
+        raise RuntimeError(f"fp32 tile: kernel {e_k!r} vs plain {e_p!r}")
+    ms_k = cuda_ms(torch, lambda: tc.tile_energy_fused(*args), 20)
+    ms_p = cuda_ms(torch, lambda: tc.tile_energy_fused_reference(*args), 5)
+    say(1, "bench tile fp32 ok", shape=f"o={NOCC},T={TILE},nvir={NVIR}",
+        e_kernel=repr(e_k), e_plain=repr(e_p), e_fp64_plain=repr(e_64),
+        abs_err=f"{tile_err:.3e}", rtol=RTOL_TILE_FP32,
+        kernel_ms=f"{ms_k:.3f}", plain_ms=f"{ms_p:.3f}",
+        launches=tc.launch_count - n0)
+    del args, out
+
+    # ---- phase 2: pinned fp64 energies on the card -----------------------
+    def rhf(geom, df=False):
+        mol = gto.M(atom=GEOMS[geom], basis="cc-pvdz")
+        mf = RHF(mol)
+        if df:
+            mf.density_fit()
+        mf.conv_tol = 1e-13
+        mf.conv_tol_grad = 1e-10
+        return mf.run()
+
+    t0 = time.perf_counter()
+    cc = CCSD(rhf("sym"), device=dev, dtype=f64)
+    cc.set(conv_tol=1e-10, conv_tol_normt=1e-8).run()
+    d_ccsd = cc.e_corr - E_CCSD_SYM
+    if not (cc.converged and abs(d_ccsd) < 1e-7):
+        raise RuntimeError(f"E(CCSD) {cc.e_corr!r} off the pin by {d_ccsd}")
+    cc = CCSD(rhf("tilt"), device=dev, dtype=f64)
+    cc.set(conv_tol=1e-12, conv_tol_normt=1e-10, max_cycle=200).run()
+    n0 = tc.launch_count
+    e_t = cc.ccsd_t()
+    nl = tc.launch_count - n0
+    d_t = e_t - E_T_TILT
+    if not (cc.converged and abs(d_t) < 1e-9 and nl > 0):
+        raise RuntimeError(f"E(T) {e_t!r} off the pin by {d_t} "
+                           f"({nl} kernel launches)")
+    say(2, "pinned fp64 ok", e_ccsd_err=f"{d_ccsd:.2e}",
+        e_t=repr(e_t), e_t_err=f"{d_t:.2e}", kernel_launches=nl,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 3: the DF main path through the user entry points ---------
+    t0 = time.perf_counter()
+    mf = RHF(gto.M(atom=GEOMS["sym"], basis="cc-pvdz")).density_fit().run()
+    tc.launch_count = 0
+    cc32 = CCSD(mf, device=dev).run()
+    et32 = cc32.ccsd_t()
+    main_launches = tc.launch_count
+    t_main = time.perf_counter() - t0
+    cc64 = CCSD(mf, device=dev, dtype=f64).run()
+    et64 = cc64.ccsd_t()
+    de, dt = cc32.e_corr - cc64.e_corr, et32 - et64
+    if not (cc32.converged and cc64.converged and main_launches > 0
+            and abs(de) < ATOL_MAIN_FP32 and abs(dt) < ATOL_MAIN_FP32):
+        raise RuntimeError(f"DF main path fp32 vs fp64: dE_corr={de}, "
+                           f"dE(T)={dt}, launches={main_launches}")
+    say(3, "DF main path ok", dtype=str(cc32.t2.dtype),
+        e_corr=repr(cc32.e_corr), e_t=repr(et32), d_e_corr=f"{de:.2e}",
+        d_e_t=f"{dt:.2e}", kernel_launches=main_launches,
+        seconds_fp32=f"{t_main:.1f}")
+    # the kernel against its plain version on one tile of this path's own
+    # (T) inputs (nocc=5, padded virtuals), after the launch count was read
+    big = ccsd_t._prepare(cc32.t1, cc32.t2, cc32.eris, TILE, f32, None,
+                          None, 1.0, "fused")
+    out = ccsd_t.make_prep_fused(big)((2, 1, 0))
+    args = (*out[:8], ccsd_t.fused_shared(big)[0], *out[8:10])
+    torch.testing.assert_close(tc.tile_energy_fused(*args),
+                               tc.tile_energy_fused_reference(*args),
+                               rtol=RTOL_TILE_FP32, atol=1e-12)
+    say(3, "main-path tile ok", shape=f"o={big['o']},T={TILE}",
+        nvir=cc32.t1.shape[1], rtol=RTOL_TILE_FP32)
+    del cc32, cc64, big, out, args
+
+    # ---- phase 4: the (H2O)8 shape ---------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    ntile = memory.plan_ladder_ntile(NOCC, NVIR, NAUX, f32, device=dev)
+    rccsd.update_amps(bt1, bt2, beris, ntile=ntile)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        a1, a2 = rccsd.update_amps(bt1, bt2, beris, ntile=ntile)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sec = statistics.median(times)
+    fl = rccsd.flops_per_update(NOCC, NVIR, NAUX)
+    fl_exec = rccsd.flops_per_update(NOCC, NVIR, NAUX, ntile)
+    peak = torch.cuda.max_memory_allocated()
+    del a1
+    if not torch.isfinite(a2).all():
+        raise RuntimeError("non-finite fp32 sweep")
+    say(4, "ccsd sweep fp32", ntile=ntile,
+        sec=" ".join(f"{t:.4f}" for t in times), sec_median=f"{sec:.4f}",
+        tflops_dense_equiv=f"{fl / sec / 1e12:.2f}",
+        tflops_executed=f"{fl_exec / sec / 1e12:.2f}",
+        peak_gib=f"{peak / 2**30:.2f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    e64 = RERIs(*(None if x is None else x.double() for x in beris))
+    ntile64 = memory.plan_ladder_ntile(NOCC, NVIR, NAUX, f64, device=dev)
+    t0 = time.perf_counter()
+    _, b2 = rccsd.update_amps(bt1.double(), bt2.double(), e64,
+                              ntile=ntile64)
+    torch.cuda.synchronize()
+    sec64 = time.perf_counter() - t0
+    rel = float(torch.linalg.norm(a2.double() - b2) / torch.linalg.norm(b2))
+    del e64, b2, a2
+    if not rel < RTOL_SWEEP_FP32:
+        raise RuntimeError(f"fp32 sweep deviates from fp64 by {rel}")
+    say(4, "fp32 vs fp64 sweep ok", rel_t2_diff=f"{rel:.3e}",
+        rtol=RTOL_SWEEP_FP32, ntile_fp64=ntile64, sec_fp64=f"{sec64:.3f}")
+
+    orig = ccsd_t._tile_triples
+    ccsd_t._tile_triples = lambda nvt: orig(nvt)[:NPROBE]
+    try:
+        ccsd_t.kernel(bt1, bt2, beris, tile=TILE, engine="fused")
+        torch.cuda.synchronize()
+        n0 = tc.launch_count
+        t0 = time.perf_counter()
+        e_probe = ccsd_t.kernel(bt1, bt2, beris, tile=TILE, engine="fused")
+        probe_s = time.perf_counter() - t0
+    finally:
+        ccsd_t._tile_triples = orig
+    if not (e_probe == e_probe and abs(e_probe) < float("inf")):
+        raise RuntimeError(f"non-finite (T) probe energy {e_probe}")
+    say(4, "(T) probe", tiles=NPROBE, launches=tc.launch_count - n0,
+        ms_per_tile=f"{probe_s / NPROBE * 1e3:.3f}",
+        kernel_ms_per_tile=f"{ms_k:.3f}", plain_ms_per_tile=f"{ms_p:.3f}",
+        e_probe=repr(e_probe), clocks_after=json.dumps(nvidia_smi(CLOCKS)),
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        max_memory_mb=config.MAX_MEMORY)
+
+    print(json.dumps({"kernels": [{
+        "name": "triples_combine", "route": "cuda",
+        "source": "pyscf_mpcc_tpu_torch/ops/csrc/triples_combine.cu",
+        "replaces": "pyscf_mpcc_tpu/ops/triples_combine.py:129",
+        "launches": main_launches, "max_abs_err": tile_err,
+        "ms": ms_k, "plain_ms": ms_p}]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,30 @@
+"""pyscf_mpcc_tpu_torch — the PyTorch / CUDA port of pyscf_mpcc_tpu.
+
+The JAX package ``pyscf_mpcc_tpu`` is the reference; this package keeps its
+module layout and public function names so each module's counterpart is
+easy to find:
+
+- ``scf``           host NumPy RHF (copy of the reference's RHF; the JAX
+                    ``scf`` package cannot be imported without jax),
+- ``ao2mo``         AO -> MO quarter transforms on tensors,
+- ``cc.eris``       MO integral containers (incore and density-fitted),
+- ``cc.rccsd``      closed-shell CCSD sweep and the host-DIIS solver,
+- ``cc.ccsd_t``     perturbative triples, through ``ops.triples_combine``,
+- ``cc.driver``     the ``CCSD(mf, device=...)`` facade,
+- ``ops``           hand-written CUDA kernels for Hopper (sm_90a) and
+                    their plain PyTorch versions,
+- ``lib``           device/dtype policy and the memory planner.
+
+Framework-free host layers (``gto``, ``df``, ``lib.diis``, ``lib.logger``,
+``lib.stream``, ``config``) are imported from ``pyscf_mpcc_tpu``; nothing
+here imports jax.
+"""
+
+__version__ = "0.1.0"
+
+from pyscf_mpcc_tpu import gto  # noqa: F401  (jax-free host layer)
+
+
+def M(**kwargs):
+    """Build a molecule: ``pyscf_mpcc_tpu_torch.M(atom=..., basis=...)``."""
+    return gto.M(**kwargs)

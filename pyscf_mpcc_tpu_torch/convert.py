@@ -1,0 +1,50 @@
+"""State carried across from the JAX package, as numpy arrays.
+
+The parity tests build a state once in the JAX package, turn it into numpy
+and hand the same arrays to both packages:
+
+    fields = {k: None if v is None else np.asarray(v)
+              for k, v in jax_eris._asdict().items()}
+    eris = eris_from_numpy(fields, device, dtype)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pyscf_mpcc_tpu_torch.cc.eris import RERIs
+from pyscf_mpcc_tpu_torch.lib import device as _dev
+
+
+def _tensor(x, device, dtype):
+    return torch.tensor(np.asarray(x), device=device, dtype=dtype)
+
+
+def eris_from_numpy(fields, device, dtype=None):
+    """The port's RERIs from ``{name: np.ndarray | None}``.
+
+    Unknown field names raise; ``Lvv_stream`` must be None (the streamed
+    Lvv mode is not ported)."""
+    device, dtype = _dev.resolve(device, dtype)
+    unknown = set(fields) - set(RERIs._fields)
+    if unknown:
+        raise ValueError(f"unknown RERIs fields {sorted(unknown)}")
+    if fields.get("Lvv_stream") is not None:
+        raise NotImplementedError(
+            "stream_vv eris are ROADMAP A16, not ported yet")
+    return RERIs(**{k: (None if fields.get(k) is None
+                        else _tensor(fields[k], device, dtype))
+                    for k in RERIs._fields})
+
+
+def amps_from_numpy(t1, t2, device, dtype=None):
+    """(t1, t2) tensors from numpy amplitudes."""
+    device, dtype = _dev.resolve(device, dtype)
+    return _tensor(t1, device, dtype), _tensor(t2, device, dtype)
+
+
+def to_numpy(x):
+    """numpy copy of a tensor on any device (``np.asarray`` is not safe on
+    a CUDA tensor)."""
+    return x.detach().cpu().numpy()

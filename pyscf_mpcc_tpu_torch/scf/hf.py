@@ -1,0 +1,310 @@
+"""Closed-shell Hartree-Fock (RHF) with commutator DIIS.
+
+A copy of the RHF surface of ``pyscf_mpcc_tpu/scf/hf.py`` (SCFBase, RHF,
+the in-core and density-fitted J/K builders and the atomic guess): that
+package's ``scf/__init__`` enables the JAX compilation cache on import, so
+it cannot be imported where jax is absent.  Host NumPy in fp64, as in the
+JAX package: SCF is set-up cost, not the device hot path.  The device DF
+J/K offload is ROADMAP A18; UHF/ROHF and the energy-DIIS schemes are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.linalg
+
+from pyscf_mpcc_tpu import gto
+from pyscf_mpcc_tpu.lib import logger as lg
+from pyscf_mpcc_tpu.lib.diis import DIIS
+from pyscf_mpcc_tpu.lib.stream import StreamObject
+
+
+class _JKIncore:
+    def __init__(self, mol):
+        self.eri = gto.intor_eri(mol)
+
+    def get_jk(self, dm):
+        # dm may be (nao,nao) or (2,nao,nao)
+        j = np.einsum("pqrs,...rs->...pq", self.eri, dm)
+        k = np.einsum("prqs,...rs->...pq", self.eri, dm)
+        return j, k
+
+
+class _JKDF:
+    """Density-fitted J/K from the B tensor (naux, nao, nao).
+
+    K uses the occupied-half-transform algorithm, K = (B C_o)(B C_o)^T with
+    dm = 2 C_o C_o^T (Cholesky factor of dm in general), which is
+    O(naux nao^2 nocc) instead of O(naux nao^3)."""
+
+    def __init__(self, b3c):
+        self.B = np.asarray(b3c)
+
+    def _halfk(self, dm):
+        # dm (symmetric PSD up to noise) = sum_i w_i v_i v_i^T; use eigh
+        w, v = np.linalg.eigh(dm)
+        keep = w > 1e-12
+        return v[:, keep] * np.sqrt(w[keep])
+
+    def get_jk(self, dm):
+        if dm.ndim == 3:
+            js, ks = zip(*(self.get_jk(d) for d in dm))
+            return np.array(js), np.array(ks)
+        co = self._halfk(dm)
+        B = self.B
+        rho = np.einsum("Lpq,pq->L", B, dm, optimize=True)
+        j = np.einsum("Lpq,L->pq", B, rho, optimize=True)
+        lo = np.einsum("Lpr,ri->Lpi", B, co, optimize=True)
+        k = np.einsum("Lpi,Lqi->pq", lo, lo, optimize=True)
+        return j, k
+
+
+def _frac_occ(mo_energy, nelec, degen_tol=1e-5):
+    """Aufbau occupations with equal spreading over degenerate sets
+    (spherical averaging for open-shell atoms: O 2p^4 -> 4/3 each)."""
+    occ = np.zeros_like(mo_energy)
+    order = np.argsort(mo_energy)
+    remaining = float(nelec)
+    i = 0
+    while i < len(order) and remaining > 1e-12:
+        j = i
+        while (j + 1 < len(order)
+               and mo_energy[order[j + 1]] - mo_energy[order[j]] < degen_tol):
+            j += 1
+        g = order[i:j + 1]
+        take = min(2.0 * len(g), remaining)
+        occ[g] = take / len(g)
+        remaining -= take
+        i = j + 1
+    return occ
+
+
+_ATOM_DM_CACHE = {}
+
+
+def _atomic_dm_cached(sym, basis):
+    key = (sym, str(basis))
+    if key not in _ATOM_DM_CACHE:
+        _ATOM_DM_CACHE[key] = _atomic_rhf_dm(sym, basis)
+    return _ATOM_DM_CACHE[key]
+
+
+def _atomic_rhf_dm(sym, basis):
+    """Spherically-averaged fractional-occupation atomic RHF density in
+    the given basis (damped fixed-point iteration; guess quality only)."""
+    from pyscf_mpcc_tpu.gto.elements import charge as _elem_charge
+    from pyscf_mpcc_tpu.gto.mole import Mole
+    mol = Mole(atom=[[sym, (0.0, 0.0, 0.0)]], basis=basis,
+               spin=_elem_charge(sym) % 2)
+    mol.build()
+    S, T = gto.intor_ovlp_kin(mol)
+    h = T + gto.intor_nuc(mol)
+    eri = gto.intor_eri(mol)
+    nelec = int(mol.nelectron)
+    e, c = scipy.linalg.eigh(h, S)
+    dm = (c * _frac_occ(e, nelec)) @ c.T
+    e_last = np.inf
+    for _ in range(200):
+        j = np.einsum("pqrs,rs->pq", eri, dm, optimize=True)
+        k = np.einsum("prqs,rs->pq", eri, dm, optimize=True)
+        f = h + j - 0.5 * k
+        e, c = scipy.linalg.eigh(f, S)
+        dm_new = (c * _frac_occ(e, nelec)) @ c.T
+        dm = 0.7 * dm_new + 0.3 * dm
+        en = float(np.einsum("pq,pq->", dm, h + 0.5 * (j - 0.5 * k)))
+        if abs(en - e_last) < 1e-10:
+            break
+        e_last = en
+    return dm
+
+
+class SCFBase(StreamObject):
+    """Mean-field base.  A StreamObject: ``RHF(mol).set(conv_tol=1e-10)
+    .run()`` chains, ``density_fit()`` upgrades J/K to DF."""
+
+    conv_tol = 1e-11
+    conv_tol_grad = None
+    max_cycle = 100
+    diis_space = 8
+    # only commutator DIIS is ported; the energy-DIIS schemes of the JAX
+    # package's scf/diis.py are not
+    diis_scheme = "cdiis"
+    init_guess_scheme = "atom"
+    # virtual-space level shift (Hartree) applied to the DIIS-extrapolated
+    # Fock before diagonalization; the converged density/energy are
+    # shift-independent.
+    level_shift = 0.0
+
+    def _shift_fock(self, fock, dm_half):
+        """F + shift * (S - S P S): lifts the virtual subspace."""
+        if not self.level_shift:
+            return fock
+        S = self.S
+        return fock + self.level_shift * (S - S @ dm_half @ S)
+
+    def __init__(self, mol, verbose=None):
+        self.mol = mol
+        self.verbose = mol.verbose if verbose is None else verbose
+        self.log = lg.Logger(verbose=self.verbose)
+        self.S, self.T = gto.intor_ovlp_kin(mol)
+        self.V = gto.intor_nuc(mol)
+        self.hcore = self.T + self.V
+        self.e_nuc = mol.energy_nuc()
+        self._jk = None
+        self.with_df = None
+        self.converged = False
+        self.e_tot = None
+        self.mo_coeff = None
+        self.mo_energy = None
+        self.mo_occ = None
+        self._declare_keys()
+
+    # -- hooks ----------------------------------------------------------
+    def get_hcore(self):
+        return self.hcore
+
+    def get_ovlp(self):
+        return self.S
+
+    def density_fit(self, auxbasis=None):
+        from pyscf_mpcc_tpu.df import DF
+        self.with_df = DF(self.mol, auxbasis=auxbasis)
+        self._jk = None
+        return self
+
+    def _get_jk_builder(self):
+        if self._jk is None:
+            if self.with_df is not None:
+                self.with_df.build()
+                self._jk = _JKDF(self.with_df.B_ao())
+            else:
+                self._jk = _JKIncore(self.mol)
+        return self._jk
+
+    def get_jk(self, dm):
+        return self._get_jk_builder().get_jk(dm)
+
+    def init_guess(self):
+        """Generalized Wolfsberg-Helmholz (GWH) core guess."""
+        h = self.get_hcore()
+        S = self.S
+        hd = np.diag(h)
+        K = 1.75
+        guess = K * S * (hd[:, None] + hd[None, :]) * 0.5
+        np.fill_diagonal(guess, hd)
+        return guess
+
+    def init_guess_by_atom(self):
+        """Superposition of spherically-averaged atomic RHF densities
+        (the 'atom' guess): solve a small fractional-occupation atomic SCF
+        per distinct element in the molecule's own basis and assemble the
+        block-diagonal AO density."""
+        blocks = [_atomic_dm_cached(sym, self.mol.basis)
+                  for sym in self.mol.symbols]
+        return scipy.linalg.block_diag(*blocks)
+
+    def get_init_dm(self):
+        """Initial density per ``self.init_guess_scheme`` ('atom' with
+        automatic fallback to the GWH core guess, or 'gwh'/'hcore' to
+        force the core guess)."""
+        if self.init_guess_scheme == "atom":
+            try:
+                return self.init_guess_by_atom()
+            except Exception as exc:  # unusual basis: fall back to GWH
+                self.log.info("atom init guess failed (%s); using GWH", exc)
+        return None
+
+    def eig(self, F, S):
+        e, c = scipy.linalg.eigh(F, S)
+        return e, c
+
+    def kernel(self, dm0=None):
+        raise NotImplementedError
+
+    def run(self, dm0=None):
+        self.kernel(dm0)
+        return self
+
+    scf = kernel
+
+    def as_scanner(self):
+        raise NotImplementedError(
+            "the SCF/CCSD geometry scanner is part of ROADMAP A7, not "
+            "ported yet")
+
+
+class RHF(SCFBase):
+    def get_occ(self, mo_energy):
+        nocc = self.mol.nelectron // 2
+        occ = np.zeros_like(mo_energy)
+        occ[:nocc] = 2.0
+        return occ
+
+    def make_rdm1(self, mo_coeff=None, mo_occ=None):
+        c = self.mo_coeff if mo_coeff is None else mo_coeff
+        o = self.mo_occ if mo_occ is None else mo_occ
+        return (c * o) @ c.T
+
+    def get_veff(self, dm):
+        j, k = self.get_jk(dm)
+        return j - 0.5 * k
+
+    def get_fock(self, dm=None):
+        if dm is None:
+            dm = self.make_rdm1()
+        return self.get_hcore() + self.get_veff(dm)
+
+    def energy_elec(self, dm, f):
+        h = self.get_hcore()
+        return 0.5 * np.einsum("pq,pq->", dm, h + f)
+
+    def kernel(self, dm0=None):
+        if self.diis_scheme != "cdiis":
+            raise NotImplementedError(
+                f"diis_scheme={self.diis_scheme!r}: only 'cdiis' is ported")
+        S = self.S
+        if dm0 is None:
+            dm0 = self.get_init_dm()
+        if dm0 is None:
+            fock = self.init_guess()
+        else:
+            fock = self.get_fock(dm0)
+        diis = DIIS(space=self.diis_space)
+        e_last = 0.0
+        conv_tol_grad = self.conv_tol_grad or np.sqrt(self.conv_tol)
+        for cycle in range(self.max_cycle):
+            mo_energy, mo_coeff = self.eig(fock, S)
+            mo_occ = self.get_occ(mo_energy)
+            dm = self.make_rdm1(mo_coeff, mo_occ)
+            fock = self.get_fock(dm)
+            e = self.energy_elec(dm, fock) + self.e_nuc
+            # DIIS on the commutator FDS - SDF (orthonormal-basis error)
+            err = fock @ dm @ S - S @ dm @ fock
+            fock = diis.update(fock, xerr=err).reshape(S.shape)
+            fock = self._shift_fock(fock, dm * 0.5)
+            gnorm = np.linalg.norm(err)
+            self.log.debug("SCF cycle %d  E = %.14f  dE = %.3e  "
+                           "|FDS-SDF| = %.3e", cycle, e, e - e_last, gnorm)
+            if abs(e - e_last) < self.conv_tol and gnorm < conv_tol_grad:
+                self.converged = True
+                break
+            e_last = e
+        # final diagonalization with unextrapolated Fock
+        fock = self.get_fock(dm)
+        self.mo_energy, self.mo_coeff = self.eig(fock, S)
+        self.mo_occ = self.get_occ(self.mo_energy)
+        dm = self.make_rdm1()
+        self.e_tot = float(self.energy_elec(dm, self.get_fock(dm))
+                           + self.e_nuc)
+        self.log.info("RHF converged=%s  E(RHF) = %.14f", self.converged,
+                      self.e_tot)
+        return self.e_tot
+
+
+def UHF(mol, *args, **kwargs):
+    raise NotImplementedError("UHF is ROADMAP A11 (open shell), not ported")
+
+
+def ROHF(mol, *args, **kwargs):
+    raise NotImplementedError("ROHF is ROADMAP A11 (open shell), not ported")

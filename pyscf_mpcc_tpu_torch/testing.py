@@ -1,0 +1,99 @@
+"""Synthetic DF integrals for smoke runs and benchmarks.
+
+Counterpart of ``__graft_entry__._synthetic_eris``: the same recipe
+(uniform 3-center factors scaled by 0.05, symmetrized Loo/Lvv, a diagonal
+Fock of sorted orbital energies with the occupied block shifted down),
+built on the target device from a seeded ``torch.Generator``.  The two
+generators give different numbers from the same seed; parity tests make
+their inputs with numpy instead.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from pyscf_mpcc_tpu_torch.cc.eris import RERIs, _pair as pair
+from pyscf_mpcc_tpu_torch.lib import device as _dev
+
+
+def synthetic_eris(nocc=4, nvir=16, naux=32, device=None, dtype=None,
+                   generator=None, build_ovvv=True):
+    """RERIs with DF factors; build_ovvv=False leaves (ia|bc) implicit
+    (the production layout at the (H2O)8 shape, where it would be
+    9.7 GB in fp32)."""
+    device, dtype = _dev.resolve(device, dtype)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=dtype)
+
+    Loo = uniform(naux, nocc, nocc) * 0.05
+    Loo = 0.5 * (Loo + Loo.transpose(1, 2))
+    Lov = uniform(naux, nocc, nvir) * 0.05
+    Lvv = uniform(naux, nvir, nvir) * 0.05
+    Lvv = 0.5 * (Lvv + Lvv.transpose(1, 2))
+    mo_e = torch.sort(uniform(nocc + nvir)).values * 2.0
+    mo_e[:nocc] -= 1.5
+    fock = torch.diag(mo_e)
+
+    ovov = pair(Lov, Lov)
+    return RERIs(
+        fock=fock, mo_energy=mo_e,
+        oooo=pair(Loo, Loo),
+        ovoo=pair(Lov, Loo),
+        ovov=ovov,
+        oovv=pair(Loo, Lvv),
+        ovvo=ovov.permute(0, 1, 3, 2).contiguous(),
+        ovvv=pair(Lov, Lvv) if build_ovvv else None,
+        vvvv=None,
+        Lvv=Lvv, Lov=Lov, Loo=Loo,
+    )
+
+
+def random_triples_problem(nocc=3, nvir=7, seed=7, naux=None):
+    """numpy (t1, t2, fields) of a random (T) problem: the recipe of the
+    JAX package's engine tests (tests/test_triples_fused.py _rand_problem,
+    and _df_problem when naux is given: DF factors replace ovvv).  fields
+    holds fock, mo_energy, ovoo, ovov, ovvv, Lov, Lvv."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape) * 0.05
+
+    t1 = r(nocc, nvir)
+    t2 = r(nocc, nocc, nvir, nvir)
+    t2 = t2 + t2.transpose(1, 0, 3, 2)
+    ovov = r(nocc, nvir, nocc, nvir)
+    ovov = ovov + ovov.transpose(2, 3, 0, 1)
+    ovvv = r(nocc, nvir, nvir, nvir)
+    ovvv = ovvv + ovvv.transpose(0, 1, 3, 2)
+    ovoo = r(nocc, nvir, nocc, nocc)
+    ovoo = ovoo + ovoo.transpose(0, 1, 3, 2)
+    mo_energy = np.concatenate([-np.sort(rng.random(nocc))[::-1] - 1.0,
+                                np.sort(rng.random(nvir)) + 0.5])
+    fock = np.diag(mo_energy)
+    fock += 0.01 * (r(nocc + nvir, nocc + nvir)
+                    + r(nocc + nvir, nocc + nvir).T)
+    fields = dict(fock=fock, mo_energy=mo_energy, ovoo=ovoo, ovov=ovov,
+                  ovvv=ovvv, Lov=None, Lvv=None)
+    if naux:
+        rng = np.random.default_rng(seed)
+        fields["ovvv"] = None
+        fields["Lov"] = rng.standard_normal((naux, nocc, nvir)) * 0.1
+        Lvv = rng.standard_normal((naux, nvir, nvir)) * 0.1
+        fields["Lvv"] = 0.5 * (Lvv + Lvv.transpose(0, 2, 1))
+    return t1, t2, fields
+
+
+def triples_tensors(t1, t2, fields, device, dtype):
+    """(t1, t2, eris namespace) tensors of random_triples_problem."""
+    def t(x):
+        return None if x is None else torch.tensor(x, device=device,
+                                                   dtype=dtype)
+    return t(t1), t(t2), SimpleNamespace(**{k: t(v)
+                                            for k, v in fields.items()})

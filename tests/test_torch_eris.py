@@ -1,0 +1,108 @@
+"""The port's integral containers, AO->MO transforms and memory planners
+against the JAX package, on the same numpy inputs (fp64 on the CPU).
+
+Blocks agree to rtol 1e-10 / atol 1e-13 (the port transforms in fp64
+with another summation order); the planners are the same shape
+arithmetic and must return identical tiles."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyscf_mpcc_tpu import ao2mo as jao2mo
+from pyscf_mpcc_tpu import config
+from pyscf_mpcc_tpu.cc import eris as jeris
+from pyscf_mpcc_tpu.df import DF
+from pyscf_mpcc_tpu.lib import memory as jmemory
+from pyscf_mpcc_tpu.testutil import h2o_ccpvdz, mol_of
+from pyscf_mpcc_tpu_torch import ao2mo, convert
+from pyscf_mpcc_tpu_torch.cc import eris as teris
+from pyscf_mpcc_tpu_torch.lib import memory
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+RTOL, ATOL = 1e-10, 1e-13
+
+
+@pytest.fixture(scope="module")
+def h2o():
+    d = h2o_ccpvdz()
+    d["B"] = DF(mol_of("sym")).B_ao()
+    return d
+
+
+def _assert_same(port, ref):
+    for name in ref._fields:
+        a, b = getattr(port, name), getattr(ref, name)
+        assert (a is None) == (b is None), name
+        if b is not None:
+            np.testing.assert_allclose(convert.to_numpy(a), np.asarray(b),
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_ao2mo_general_matches_jax(h2o):
+    rng = np.random.default_rng(0)
+    nao = 6
+    eri = rng.standard_normal((nao,) * 4)
+    cs = [rng.standard_normal((nao, n)) for n in (2, 3, 4, 5)]
+    ref = np.asarray(jao2mo.general(jnp.asarray(eri),
+                                    [jnp.asarray(c) for c in cs]))
+    out = ao2mo.general(torch.tensor(eri), [torch.tensor(c) for c in cs])
+    np.testing.assert_allclose(convert.to_numpy(out), ref, rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_make_eris_incore_matches_jax(h2o):
+    args = (h2o["eri_ao"], h2o["mo_coeff"], h2o["fock_ao"], 5)
+    _assert_same(teris.make_eris_incore(*args, device=CPU),
+                 jeris.make_eris_incore(*args))
+
+
+@pytest.mark.parametrize("keep_ovvv", [True, False])
+def test_make_eris_df_matches_jax(h2o, keep_ovvv):
+    args = (h2o["B"], h2o["mo_coeff"], h2o["fock_ao"], 5)
+    port = teris.make_eris_df(*args, keep_ovvv=keep_ovvv, device=CPU)
+    _assert_same(port, jeris.make_eris_df(*args, keep_ovvv=keep_ovvv))
+    np.testing.assert_array_equal(
+        convert.to_numpy(port.get_ovvo()),
+        convert.to_numpy(port.ovov).transpose(0, 1, 3, 2))
+    for kw in (dict(stream_vv=True), dict(transform_backend="ozaki")):
+        with pytest.raises(NotImplementedError):
+            teris.make_eris_df(*args, device=CPU, **kw)
+
+
+def test_eris_from_numpy_round_trip(h2o):
+    ref = jeris.make_eris_df(h2o["B"], h2o["mo_coeff"], h2o["fock_ao"], 5)
+    fields = {k: None if v is None else np.asarray(v)
+              for k, v in ref._asdict().items()}
+    _assert_same(convert.eris_from_numpy(fields, CPU), ref)
+    with pytest.raises(ValueError):
+        convert.eris_from_numpy(dict(fields, bogus=None), CPU)
+
+
+@pytest.mark.parametrize("shape", [(5, 19, 84), (32, 424, 1216),
+                                   (10, 200, 500)])
+@pytest.mark.parametrize("gib", [4, 16, 80])
+def test_planners_match_jax(shape, gib):
+    budget = gib * 2**30
+    for dtype, jdt in ((torch.float32, "float32"),
+                       (torch.float64, "float64")):
+        assert memory.plan_ladder_ntile(*shape, dtype, budget=budget) == \
+            jmemory.plan_ladder_ntile(*shape, jdt, budget=budget)
+        assert memory.plan_ladder_ntile(*shape, dtype, budget=budget,
+                                        vjp=True) == \
+            jmemory.plan_ladder_ntile(*shape, jdt, budget=budget, vjp=True)
+        assert memory.plan_triples_tile(*shape, dtype, budget=budget) == \
+            jmemory.plan_triples_tile(*shape, jdt, budget=budget)
+
+
+def test_cpu_budget_needs_explicit_limit(monkeypatch):
+    monkeypatch.setattr(config, "MAX_MEMORY", 0)
+    with pytest.raises(ValueError):
+        memory.hbm_budget_bytes(CPU)
+    with pytest.raises(ValueError):
+        memory.plan_ladder_ntile(5, 19, 84, device=CPU)
+    monkeypatch.setattr(config, "MAX_MEMORY", 2048)
+    assert memory.hbm_budget_bytes(CPU) == 2048 * 2**20

@@ -1,0 +1,115 @@
+"""The DF-CCSD(T) slice of the port end to end, and its jax-free imports.
+
+- The user entry points, RHF(mol).density_fit().run() -> CCSD(mf,
+  device=cpu).run() -> .ccsd_t(), against the JAX package's RCCSDDriver
+  on H2O/cc-pVDZ: E_corr to 1e-9 and E(T) to 1e-10.
+- No module of the port (nor chip_smoke.py) imports jax, and the port
+  imports the JAX package only from its jax-free host layers; a fresh
+  interpreter runs a small synthetic CCSD(T) with jax never loaded.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from conftest import clean_child_env
+from pyscf_mpcc_tpu import config
+from pyscf_mpcc_tpu import scf as jscf
+from pyscf_mpcc_tpu.cc.driver import RCCSDDriver
+from pyscf_mpcc_tpu.testutil import mol_of
+from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+from pyscf_mpcc_tpu_torch.scf import RHF
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "pyscf_mpcc_tpu_torch")
+# the JAX package's layers that import no jax
+ALLOWED = ("pyscf_mpcc_tpu.gto", "pyscf_mpcc_tpu.df",
+           "pyscf_mpcc_tpu.lib.diis", "pyscf_mpcc_tpu.lib.logger",
+           "pyscf_mpcc_tpu.lib.stream", "pyscf_mpcc_tpu.config")
+
+
+def test_df_slice_matches_jax_driver(monkeypatch):
+    # the JAX memory planner falls back to 12 GiB on the CPU backend; give
+    # both packages that budget so they plan the same tiles
+    monkeypatch.setattr(config, "MAX_MEMORY", 12 * 1024)
+    mol = mol_of("sym")
+    jmf = jscf.RHF(mol).density_fit().run()
+    jcc = RCCSDDriver(jmf).run()
+    jet = jcc.ccsd_t()
+    mf = RHF(mol).density_fit().run()
+    assert abs(mf.e_tot - jmf.e_tot) < 1e-10
+    cc = CCSD(mf, device=torch.device("cpu")).run()
+    assert cc.converged and cc.t2.dtype == torch.float64
+    et = cc.ccsd_t()
+    assert abs(cc.e_corr - jcc.e_corr) < 1e-9
+    assert abs(et - jet) < 1e-10
+    assert abs(cc.e_tot - jcc.e_tot) < 1e-9
+
+
+def _imports(path):
+    """Fully qualified names imported by one source file."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            for a in node.names:
+                yield f"{node.module}.{a.name}"
+
+
+def _sources():
+    yield os.path.join(ROOT, "chip_smoke.py")
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+
+
+def test_port_imports_no_jax_statically():
+    bad = []
+    for path in _sources():
+        for name in _imports(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib"):
+                bad.append((path, name))
+            elif top == "pyscf_mpcc_tpu" and not any(
+                    name == a or name.startswith(a + ".") for a in ALLOWED):
+                bad.append((path, name))
+    assert not bad, bad
+
+
+CHILD = r"""
+import sys
+if "jax" in sys.modules:
+    print("JAX_PRELOADED")
+    raise SystemExit(0)
+import importlib, pkgutil, torch
+import pyscf_mpcc_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from pyscf_mpcc_tpu_torch import testing
+from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd
+er = testing.synthetic_eris(4, 11, 30, device="cpu", build_ovvv=False)
+conv, e, t1, t2 = rccsd.kernel(er, ntile=2, conv_tol=1e-10)
+et = ccsd_t.kernel(t1, t2, er, tile=4, engine="fused")
+assert conv and e < 0 and et < 0, (conv, e, et)
+assert "jax" not in sys.modules
+print("NOJAX_OK", e, et)
+"""
+
+
+def test_port_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=ROOT,
+                          env=clean_child_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    if "JAX_PRELOADED" in proc.stdout:
+        pytest.skip("jax is loaded at interpreter start here")
+    assert "NOJAX_OK" in proc.stdout
