@@ -5,12 +5,14 @@ Run from the root of a checkout on a machine with an NVIDIA H100 and nvcc:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernel from ops/csrc, then runs:
+It builds the hand-written CUDA kernels from ops/csrc (one nvcc process
+each, started together), then runs:
 
-  0. environment: versions, card, TF32 flags (asserted off), kernel build;
-  1. the (T) epilogue kernel against its plain PyTorch version on the
-     card: random small problems in fp64, and one tile at the (H2O)8
-     shape in fp32, with timings;
+  0. environment: versions, card, TF32 flags (asserted off), kernel builds
+     and their register reports;
+  1. the (T) epilogue kernel (triples_combine) against its plain PyTorch
+     version on the card: random small problems in fp64, and one tile at
+     the (H2O)8 shape in fp32, with timings;
   2. pinned H2O/cc-pVDZ energies in fp64 on the card (incore integrals):
      E(CCSD) and E(T), the latter through the CUDA kernel;
   3. the DF main path through the user entry points,
@@ -18,10 +20,20 @@ It builds the hand-written CUDA kernel from ops/csrc, then runs:
      -> .ccsd_t(), in fp32, against the same calls in fp64;
   4. the (H2O)8/cc-pVTZ frozen-core shape (nocc=32, nvir=424,
      naux=1216) with synthetic DF integrals: CCSD sweep time, rate and
-     peak memory, an fp32-vs-fp64 sweep check, and a 64-tile (T) probe.
+     peak memory, an fp32-vs-fp64 sweep check, and a 64-tile (T) probe
+     on the fused engine;
+  5. the resident (T) engine (triples_resident, W1 dots in the kernel):
+     (a) the kernel against its plain version on random problems (fp64
+     mode f32, fp32 modes split and bf16), (b) one (H2O)8 tile in modes
+     f32 and split with timings beside the fused engine's path, (c) the
+     pinned fp64 E(T) through engine='resident', (d) the 64-tile probe
+     through engine='resident' in modes f32 and split beside phase 4's.
 
-Every phase raises on failure.  The last lines are the kernel record,
-the card's name and power limit, and {"ok": true, "device": {...}}.
+Every phase raises on failure.  The last lines are the kernel record
+(each kernel's launches on the full-width probe, its error against the
+plain version, its time, the plain version's time and the least time the
+card could take, from the peak rates below), the card's name and power
+limit, and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the repository beside it, the script
 exits non-zero and prints no result.
 """
@@ -39,12 +51,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tests/test_ccsd_t.py, from the reference's own pins)
 E_CCSD_SYM = -0.2133432312951
 E_T_TILT = -0.0033300722704016289
-GEOMS = {
-    "sym": [[8, (0., 0., 0.)], [1, (0., -0.757, 0.587)],
-            [1, (0., 0.757, 0.587)]],
-    "tilt": [[8, (0., 0., 0.)], [1, (0., -0.957, 0.587)],
-             [1, (0.2, 0.757, 0.487)]],
-}
 # (H2O)8/cc-pVTZ frozen core, the JAX package's production shape
 NOCC, NVIR, NAUX, TILE = 32, 424, 1216, 8
 NPROBE = 64
@@ -60,6 +66,12 @@ RTOL_TILE_FP32 = 1e-5
 RTOL_SWEEP_FP32 = 1e-4
 # fp32 vs fp64 main path (the issue's acceptance bound)
 ATOL_MAIN_FP32 = 1e-6
+# resident 'split' (bf16x3) vs 'f32' probe energy: the JAX package's own
+# wiring bound for the mode (tests/test_triples_fused.py:145)
+RTOL_SPLIT = 5e-4
+# published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
+# bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
+PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
 
 
 def say(phase, msg, **kw):
@@ -93,6 +105,46 @@ def cuda_ms(torch, fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def trace_top(torch, fn, n, k=6):
+    """Device time per call of the k costliest kernels of fn, from a
+    torch.profiler trace over n calls: [(name, ms per call, calls)]."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0:
+            rows.append((ev.key[:48], round(us / n / 1e3, 4),
+                         ev.count // n))
+    return sorted(rows, key=lambda r: -r[1])[:k]
+
+
+def nbytes(*xs):
+    """Bytes of the tensors in xs (nested lists allowed; None skipped)."""
+    tot = 0
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            tot += nbytes(*x)
+        elif x is not None:
+            tot += x.numel() * x.element_size()
+    return tot
+
+
+def bound_ms(nbyte, flops):
+    """Least milliseconds for nbyte of traffic and flops {type: count}:
+    the larger of the byte time and the summed operation times."""
+    t_b = nbyte / PEAK["bytes"]
+    t_o = sum(n / PEAK[k] for k, n in flops.items())
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -100,9 +152,8 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from pyscf_mpcc_tpu import config
-    from pyscf_mpcc_tpu.gto import native
-    from pyscf_mpcc_tpu_torch import gto, testing
+    from pyscf_mpcc_tpu_torch import config, testing
+    from pyscf_mpcc_tpu_torch.gto import native
     from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd
     from pyscf_mpcc_tpu_torch.cc.driver import CCSD
     from pyscf_mpcc_tpu_torch.cc.eris import RERIs
@@ -110,6 +161,7 @@ def main():
     from pyscf_mpcc_tpu_torch.lib import memory
     from pyscf_mpcc_tpu_torch.ops import _build
     from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
     from pyscf_mpcc_tpu_torch.scf import RHF
 
     f64, f32 = torch.float64, torch.float32
@@ -122,17 +174,17 @@ def main():
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
     t0 = time.perf_counter()
-    _build.load("triples_combine")
+    kernels = ("triples_combine", "triples_resident")
+    _build.load_all(kernels)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             _build.build_info["triples_combine"]["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
     say(0, "env", torch=torch.__version__, cuda=torch.version.cuda,
         card=json.dumps(smi), gpus=torch.cuda.device_count(),
         native_integrals=native.available(),
         kernel_build_s=f"{build_s:.2f}")
-    for ln in ptxas:
-        say(0, "ptxas", line=json.dumps(ln))
+    for name in kernels:
+        for ln in _build.build_info[name]["log"].splitlines():
+            if "registers" in ln or "spill" in ln:
+                say(0, "ptxas", kernel=name, line=json.dumps(ln.strip()))
     say(0, "clocks", sm_max_power_temp=json.dumps(nvidia_smi(CLOCKS)))
 
     # ---- phase 1: kernel against its plain version -----------------------
@@ -196,17 +248,23 @@ def main():
         raise RuntimeError(f"fp32 tile: kernel {e_k!r} vs plain {e_p!r}")
     ms_k = cuda_ms(torch, lambda: tc.tile_energy_fused(*args), 20)
     ms_p = cuda_ms(torch, lambda: tc.tile_energy_fused_reference(*args), 5)
+    # bound: read the six W1 streams and the slices once; the w2 dots,
+    # 6 o^4 multiply-adds per cell of nonzero weight, in fp32
+    ncell = int((ccsd_t._weights([5 * TILE, 3 * TILE, TILE], TILE, f64, dev)
+                 != 0).sum())
+    comb_bound = bound_ms(nbytes(args) + 8 * TILE ** 3,
+                          {"fp32": 2 * 6 * ncell * NOCC ** 4})
     say(1, "bench tile fp32 ok", shape=f"o={NOCC},T={TILE},nvir={NVIR}",
         e_kernel=repr(e_k), e_plain=repr(e_p), e_fp64_plain=repr(e_64),
         abs_err=f"{tile_err:.3e}", rtol=RTOL_TILE_FP32,
         kernel_ms=f"{ms_k:.3f}", plain_ms=f"{ms_p:.3f}",
+        bound_ms=f"{comb_bound[0]:.3f}", bound_by=comb_bound[1],
         launches=tc.launch_count - n0)
     del args, out
 
     # ---- phase 2: pinned fp64 energies on the card -----------------------
     def rhf(geom, df=False):
-        mol = gto.M(atom=GEOMS[geom], basis="cc-pvdz")
-        mf = RHF(mol)
+        mf = RHF(testing.mol_of(geom))
         if df:
             mf.density_fit()
         mf.conv_tol = 1e-13
@@ -219,13 +277,13 @@ def main():
     d_ccsd = cc.e_corr - E_CCSD_SYM
     if not (cc.converged and abs(d_ccsd) < 1e-7):
         raise RuntimeError(f"E(CCSD) {cc.e_corr!r} off the pin by {d_ccsd}")
-    cc = CCSD(rhf("tilt"), device=dev, dtype=f64)
-    cc.set(conv_tol=1e-12, conv_tol_normt=1e-10, max_cycle=200).run()
+    tilt = CCSD(rhf("tilt"), device=dev, dtype=f64)
+    tilt.set(conv_tol=1e-12, conv_tol_normt=1e-10, max_cycle=200).run()
     n0 = tc.launch_count
-    e_t = cc.ccsd_t()
+    e_t = tilt.ccsd_t()
     nl = tc.launch_count - n0
     d_t = e_t - E_T_TILT
-    if not (cc.converged and abs(d_t) < 1e-9 and nl > 0):
+    if not (tilt.converged and abs(d_t) < 1e-9 and nl > 0):
         raise RuntimeError(f"E(T) {e_t!r} off the pin by {d_t} "
                            f"({nl} kernel launches)")
     say(2, "pinned fp64 ok", e_ccsd_err=f"{d_ccsd:.2e}",
@@ -234,7 +292,7 @@ def main():
 
     # ---- phase 3: the DF main path through the user entry points ---------
     t0 = time.perf_counter()
-    mf = RHF(gto.M(atom=GEOMS["sym"], basis="cc-pvdz")).density_fit().run()
+    mf = RHF(testing.mol_of("sym")).density_fit().run()
     tc.launch_count = 0
     cc32 = CCSD(mf, device=dev).run()
     et32 = cc32.ccsd_t()
@@ -302,32 +360,204 @@ def main():
     say(4, "fp32 vs fp64 sweep ok", rel_t2_diff=f"{rel:.3e}",
         rtol=RTOL_SWEEP_FP32, ntile_fp64=ntile64, sec_fp64=f"{sec64:.3f}")
 
-    orig = ccsd_t._tile_triples
-    ccsd_t._tile_triples = lambda nvt: orig(nvt)[:NPROBE]
-    try:
-        ccsd_t.kernel(bt1, bt2, beris, tile=TILE, engine="fused")
-        torch.cuda.synchronize()
-        n0 = tc.launch_count
-        t0 = time.perf_counter()
-        e_probe = ccsd_t.kernel(bt1, bt2, beris, tile=TILE, engine="fused")
-        probe_s = time.perf_counter() - t0
-    finally:
-        ccsd_t._tile_triples = orig
-    if not (e_probe == e_probe and abs(e_probe) < float("inf")):
-        raise RuntimeError(f"non-finite (T) probe energy {e_probe}")
-    say(4, "(T) probe", tiles=NPROBE, launches=tc.launch_count - n0,
-        ms_per_tile=f"{probe_s / NPROBE * 1e3:.3f}",
+    def probe(engine, launches, **kw):
+        """E(T) over the first NPROBE tiles through ccsd_t.kernel (the
+        entry point) after a warm-up run; launches is the kernel module
+        whose count is zeroed just before the timed run.  Returns
+        (energy, ms per tile, launches in the timed run)."""
+        orig = ccsd_t._tile_triples
+        ccsd_t._tile_triples = lambda nvt: orig(nvt)[:NPROBE]
+        try:
+            ccsd_t.kernel(bt1, bt2, beris, tile=TILE, engine=engine, **kw)
+            torch.cuda.synchronize()
+            launches.launch_count = 0
+            t0 = time.perf_counter()
+            e = ccsd_t.kernel(bt1, bt2, beris, tile=TILE, engine=engine,
+                              **kw)
+            ms = (time.perf_counter() - t0) / NPROBE * 1e3
+            n = launches.launch_count
+        finally:
+            ccsd_t._tile_triples = orig
+        if not (e == e and abs(e) < float("inf")):
+            raise RuntimeError(f"non-finite (T) probe energy {e}")
+        return e, ms, n
+
+    e_probe, probe_ms, comb_launches = probe("fused", tc)
+    if comb_launches == 0:
+        raise RuntimeError("the fused probe launched no combine kernel")
+    say(4, "(T) probe", tiles=NPROBE, launches=comb_launches,
+        ms_per_tile=f"{probe_ms:.3f}",
         kernel_ms_per_tile=f"{ms_k:.3f}", plain_ms_per_tile=f"{ms_p:.3f}",
         e_probe=repr(e_probe), clocks_after=json.dumps(nvidia_smi(CLOCKS)),
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         max_memory_mb=config.MAX_MEMORY)
 
+    # ---- phase 5: the resident (T) engine --------------------------------
+    def resident_chunk(nocc, nvir, seed, dtype, tile, tiles, act, df):
+        t1, t2, er = testing.triples_tensors(
+            *testing.random_triples_problem(nocc, nvir, seed,
+                                            naux=11 if df else None),
+            dev, dtype)
+        kw = dict(act_hole=[0, 2], act_particle=[1, 3, 4]) if act \
+            else dict(act_hole=None, act_particle=None)
+        big = ccsd_t._prepare(t1, t2, er, tile, dtype, kw["act_hole"],
+                              kw["act_particle"], 1.0, "resident")
+        prep = ccsd_t.make_prep_resident(big)
+        eijk, actocc = ccsd_t.fused_shared(big)
+        trips = ccsd_t._tile_triples(big["nvp"] // tile)
+        out = ccsd_t.stack_prep_resident([prep(trips[n]) for n in tiles])
+        akw = dict(act3=out[9], actocc=actocc, act_mode=act) if act else {}
+        return (*out[:7], eijk, *out[7:9]), akw
+
+    def check_resident(args, akw, mode, rtol, atol):
+        e_k = tr.tile_energy_resident_chunk(*args, mode=mode, **akw)
+        e_p = tr.tile_energy_resident_reference_chunk(*args, mode=mode,
+                                                      **akw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(e_k).all():
+            raise RuntimeError("non-finite resident kernel energies")
+        torch.testing.assert_close(e_k, e_p, rtol=rtol, atol=atol)
+
+    nchk = 0
+    for nocc in (3, 5):
+        for act in (None, "exclude_active", "only_active"):
+            for K in (1, 4):
+                check_resident(*resident_chunk(nocc, 7, 11 + nocc, f64, 3,
+                                               range(K), act, K == 4),
+                               "f32", RTOL_FP64, 1e-14)
+                nchk += 1
+    # odd tile: nvir=7 at tile 4 pads the virtuals (weight-zero cells)
+    check_resident(*resident_chunk(4, 7, 9, f64, 4, range(4), None, False),
+                   "f32", RTOL_FP64, 1e-14)
+    nchk += 1
+    for mode in ("split", "bf16"):
+        for act in (None, "only_active"):
+            check_resident(*resident_chunk(5, 9, 4, f32, 3, range(4), act,
+                                           True),
+                           mode, RTOL_TILE_FP32, 1e-9)
+            nchk += 1
+    say(5, "random problems ok", cases=nchk, rtol_fp64_f32=RTOL_FP64,
+        rtol_fp32_split_bf16=RTOL_TILE_FP32)
+
+    # (b) one tile of the bench shape, modes f32 and split
+    abc = (5, 3, 1)
+    bigr = ccsd_t._prepare(bt1, bt2, beris, TILE, f32, None, None, 1.0,
+                           "resident")
+    prep_r = ccsd_t.make_prep_resident(bigr)
+    eijk = ccsd_t.fused_shared(bigr)[0]
+    out = prep_r(abc)
+    rargs = (*out[:7], eijk, *out[7:9])
+
+    def to64(a):
+        return [to64(x) for x in a] if isinstance(a, (list, tuple)) \
+            else a.double()
+
+    e_r64 = float(tr.tile_energy_resident_reference(*to64(rargs),
+                                                    mode="f32"))
+    bigf = ccsd_t._prepare(bt1, bt2, beris, TILE, f32, None, None, 1.0,
+                           "fused")
+    prep_f = ccsd_t.make_prep_fused(bigf)
+
+    def fused_path():
+        o = prep_f(abc)
+        return tc.tile_energy_fused(*o[:8], eijk, *o[8:10])
+
+    def resident_path(mode):
+        o = prep_r(abc)
+        return tr.tile_energy_resident(*o[:7], eijk, *o[7:9], mode=mode)
+
+    # the same cells with the W1 dots cut to F = 16 of 424: what is left
+    # is the w2 dots, the orbit phase and the launch
+    cut = [x[:, :16].contiguous() for x in rargs[0]]
+    cargs = (cut, [x[..., :16].contiguous() for x in rargs[1]], *rargs[2:])
+    res = {}
+    for mode in ("f32", "split"):
+        e_k = float(tr.tile_energy_resident(*rargs, mode=mode))
+        e_p = float(tr.tile_energy_resident_reference(*rargs, mode=mode))
+        err = abs(e_k - e_p)
+        if not err <= RTOL_TILE_FP32 * abs(e_p):
+            raise RuntimeError(f"resident {mode} tile: kernel {e_k!r} vs "
+                               f"plain {e_p!r}")
+        ms_rk = cuda_ms(torch, lambda: tr.tile_energy_resident(
+            *rargs, mode=mode), 10)
+        ms_rp = cuda_ms(torch, lambda: tr.tile_energy_resident_reference(
+            *rargs, mode=mode), 3)
+        ms_path = cuda_ms(torch, lambda: resident_path(mode), 10)
+        ms_cut = cuda_ms(torch, lambda: tr.tile_energy_resident(
+            *cargs, mode=mode), 10)
+        flops = ({"fp32": 2 * 6 * ncell * NOCC ** 3 * bigr["nvp"]}
+                 if mode == "f32" else
+                 {"bf16": 3 * 2 * 6 * ncell * NOCC ** 3 * bigr["nvp"]})
+        flops["fp32"] = flops.get("fp32", 0) + 2 * 6 * ncell * NOCC ** 4
+        bnd = bound_ms(nbytes(rargs) + 8 * TILE ** 3, flops)
+        res[mode] = dict(e=e_k, err=err, ms=ms_rk, plain_ms=ms_rp,
+                         bound=bnd)
+        say(5, f"bench tile {mode} ok", shape=f"o={NOCC},T={TILE},"
+            f"nvir={NVIR}", e_kernel=repr(e_k), e_plain=repr(e_p),
+            e_fp64_plain_f32=repr(e_r64),
+            rel_err_vs_fp64=f"{abs(e_k - e_r64) / abs(e_r64):.3e}",
+            abs_err=f"{err:.3e}", rtol=RTOL_TILE_FP32,
+            kernel_ms=f"{ms_rk:.3f}", plain_ms=f"{ms_rp:.3f}",
+            path_ms=f"{ms_path:.3f}", kernel_ms_f16=f"{ms_cut:.3f}",
+            bound_ms=f"{bnd[0]:.3f}", bound_by=bnd[1])
+        say(5, f"trace {mode} path", top=json.dumps(
+            trace_top(torch, lambda: resident_path(mode), 5)))
+    ms_fpath = cuda_ms(torch, fused_path, 10)
+    say(5, "bench tile fused path (W1 GEMMs + epilogue kernel)",
+        path_ms=f"{ms_fpath:.3f}", epilogue_kernel_ms=f"{ms_k:.3f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    say(5, "trace fused path", top=json.dumps(
+        trace_top(torch, fused_path, 5)))
+    del bigr, bigf, prep_r, prep_f, out, rargs, cargs, cut
+
+    # (c) the pinned fp64 E(T) through the resident kernel
+    tr.launch_count = 0
+    e_t = ccsd_t.kernel(tilt.t1, tilt.t2, tilt.eris, tile=8,
+                        engine="resident")
+    nl = tr.launch_count
+    d_t = e_t - E_T_TILT
+    if not (abs(d_t) < 1e-9 and nl > 0):
+        raise RuntimeError(f"resident E(T) {e_t!r} off the pin by {d_t} "
+                           f"({nl} kernel launches)")
+    say(5, "pinned fp64 ok", e_t=repr(e_t), e_t_err=f"{d_t:.2e}",
+        kernel_launches=nl)
+
+    # (d) the 64-tile probe through engine='resident', beside the fused
+    # probe (fused, resident f32, resident split, fused again)
+    e_f32, pms_f32, res_launches = probe("resident", tr)
+    e_split, pms_split, _ = probe("resident", tr, dot_precision="high")
+    e_fused2, probe_ms2, _ = probe("fused", tc)
+    d_fused = abs(e_f32 - e_probe) / abs(e_probe)
+    d_split = abs(e_split - e_f32) / abs(e_f32)
+    if not (d_fused <= RTOL_TILE_FP32 and d_split <= RTOL_SPLIT
+            and res_launches > 0):
+        raise RuntimeError(f"resident probe: f32 {e_f32!r}, split "
+                           f"{e_split!r}, fused {e_probe!r}, "
+                           f"{res_launches} launches")
+    say(5, "(T) probe", tiles=NPROBE, launches=res_launches,
+        ms_per_tile_f32=f"{pms_f32:.3f}", ms_per_tile_split=f"{pms_split:.3f}",
+        ms_per_tile_fused=f"{probe_ms:.3f} {probe_ms2:.3f}",
+        e_f32=repr(e_f32), e_split=repr(e_split), e_fused=repr(e_probe),
+        rel_f32_vs_fused=f"{d_fused:.3e}", rtol=RTOL_TILE_FP32,
+        rel_split_vs_f32=f"{d_split:.3e}", rtol_split=RTOL_SPLIT,
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)),
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    rf = res["f32"]
     print(json.dumps({"kernels": [{
         "name": "triples_combine", "route": "cuda",
         "source": "pyscf_mpcc_tpu_torch/ops/csrc/triples_combine.cu",
         "replaces": "pyscf_mpcc_tpu/ops/triples_combine.py:129",
-        "launches": main_launches, "max_abs_err": tile_err,
-        "ms": ms_k, "plain_ms": ms_p}]}))
+        "launches": comb_launches, "max_abs_err": tile_err,
+        "ms": ms_k, "plain_ms": ms_p, "bound_ms": comb_bound[0],
+        "bound_by": comb_bound[1], "library_ms": None}, {
+        "name": "triples_resident", "route": "cuda",
+        "source": "pyscf_mpcc_tpu_torch/ops/csrc/triples_resident.cu",
+        "replaces": "pyscf_mpcc_tpu/ops/triples_resident.py:238",
+        "launches": res_launches, "max_abs_err": rf["err"],
+        "ms": rf["ms"], "plain_ms": rf["plain_ms"],
+        "bound_ms": rf["bound"][0], "bound_by": rf["bound"][1],
+        "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,20 +9,24 @@ easy to find:
 - ``ao2mo``         AO -> MO quarter transforms on tensors,
 - ``cc.eris``       MO integral containers (incore and density-fitted),
 - ``cc.rccsd``      closed-shell CCSD sweep and the host-DIIS solver,
-- ``cc.ccsd_t``     perturbative triples, through ``ops.triples_combine``,
-- ``cc.driver``     the ``CCSD(mf, device=...)`` facade,
+- ``cc.ccsd_t``     perturbative triples, through ``ops.triples_combine``
+                    (engine 'fused') or ``ops.triples_resident`` ('resident'),
+- ``cc.driver``     the ``CCSD(mf)`` facade (on the CUDA device unless
+                    ``device=torch.device('cpu')`` is passed),
 - ``ops``           hand-written CUDA kernels for Hopper (sm_90a) and
                     their plain PyTorch versions,
-- ``lib``           device/dtype policy and the memory planner.
+- ``lib``           device/dtype policy, the memory planner, and the
+                    host layers below.
 
-Framework-free host layers (``gto``, ``df``, ``lib.diis``, ``lib.logger``,
-``lib.stream``, ``config``) are imported from ``pyscf_mpcc_tpu``; nothing
-here imports jax.
+The framework-free host layers (``gto`` with its native integral engine
+and basis library, ``df``, ``lib.diis``, ``lib.logger``, ``lib.stream``,
+``config``) are copies of the JAX package's, with their imports pointed
+here: the port imports nothing of ``pyscf_mpcc_tpu`` and nothing of jax.
 """
 
 __version__ = "0.1.0"
 
-from pyscf_mpcc_tpu import gto  # noqa: F401  (jax-free host layer)
+from pyscf_mpcc_tpu_torch import gto  # noqa: E402,F401
 
 
 def M(**kwargs):

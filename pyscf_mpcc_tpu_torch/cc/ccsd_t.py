@@ -15,9 +15,11 @@ E(T) = 2 * sum_{a>=b>=c} weight(abc) sum_ijk W * Z / D.
 
 Engines: 'fused' runs the six W1 GEMMs in torch and the epilogue in the
 CUDA kernel of ops/triples_combine (its plain version for CPU tensors);
-'xla' is the whole tile in plain torch (the port of the JAX package's
-XLA engine, the independent CPU oracle); 'auto' picks 'fused' for CUDA
-tensors and 'xla' for CPU tensors.
+'resident' runs the whole tile, W1 dots included, in the CUDA kernel of
+ops/triples_resident, so W never reaches device memory; 'xla' is the
+whole tile in plain torch (the port of the JAX package's XLA engine, the
+independent CPU oracle); 'auto' picks 'fused' for CUDA tensors and 'xla'
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,8 +29,15 @@ import torch
 import torch.nn.functional as F
 
 from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
 
 PERMS = tc.PERMS
+
+# dot_precision -> resident W1 mode.  The port's default (None) is full
+# fp32 dots, TF32 off; 'high' is the JAX package's bf16x3 ('split');
+# 'default' a single bf16 pass, opt-in.
+RESIDENT_MODES = {None: "f32", "highest": "f32", "high": "split",
+                  "default": "bf16"}
 
 
 def _tile_triples(nvt):
@@ -78,10 +87,14 @@ def _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
     # vooo[a, i, (j,m)] = (ia|jm)
     big["vooo"] = padv(eris.ovoo.to(dtype).permute(1, 0, 2, 3),
                        [0]).reshape(nvp, o, oo)
-    if engine == "fused":
-        # t2Ts[c, f, (k,j)] = t2[j, k, c, f]; oovv_T[x, y, (i,j)] = (ix|jy)
-        big["t2Ts"] = padv(t2d.permute(2, 3, 0, 1),
-                           [0, 1]).reshape(nvp, nvp, oo)
+    if engine in ("fused", "resident"):
+        # oovv_T[x, y, (i,j)] = (ix|jy); the swapped-pair layout
+        # t2Ts[c, f, (k,j)] = t2[j, k, c, f] only feeds the fused engine's
+        # canonical-emission dots (the resident kernel derives every perm
+        # from t2T alone)
+        if engine == "fused":
+            big["t2Ts"] = padv(t2d.permute(2, 3, 0, 1),
+                               [0, 1]).reshape(nvp, nvp, oo)
         big["oovv_T"] = padv(eris.ovov.to(dtype).permute(1, 3, 0, 2),
                              [0, 1]).reshape(nvp, nvp, oo)
     else:
@@ -245,6 +258,56 @@ def make_prep_fused(big):
     return prep
 
 
+def make_prep_resident(big):
+    """Per-tile prep for the resident kernel: operand slices only (the W
+    dots run in the kernel), as the argument tuple of
+    tile_energy_resident (plus act3 when masked).  The t2 slices are views
+    of the persistent t2T; the ov blocks are DF products (or ovvv slices)
+    made here."""
+    T, o = big["T"], big["o"]
+    oo = o * o
+    t2T, vooo, oovv_T = big["t2T"], big["vooo"], big["oovv_T"]
+    t1p, fvo_p, ev_p = big["t1p"], big["fvo_p"], big["ev_p"]
+    act_vir = big.get("act_vir")
+    dtype, dev = t2T.dtype, t2T.device
+
+    def pair_stack(x, starts):
+        return torch.stack([x[starts[r1]:starts[r1] + T,
+                              starts[r2]:starts[r2] + T].reshape(T, T, o, o)
+                            for (r1, r2) in tr.PAIRS9])
+
+    def prep(abc):
+        starts = tuple(int(r) * T for r in abc)
+        t2sl = [t2T[s:s + T] for s in starts]
+        ovbl = [_ov_block(big, starts[x], starts[y]).contiguous()
+                for (x, y) in tr.PAIRS6]
+        vooo_t = torch.stack([vooo[s:s + T].reshape(T, oo, o)
+                              for s in starts])
+        t1_t = torch.stack([t1p[:, s:s + T].T for s in starts])
+        fvo_t = torch.stack([fvo_p[s:s + T] for s in starts])
+        ev3 = [ev_p[s:s + T] for s in starts]
+        eabc3 = (ev3[0][:, None, None] + ev3[1][None, :, None]
+                 + ev3[2][None, None, :])
+        out = (t2sl, ovbl, vooo_t, pair_stack(t2T, starts),
+               pair_stack(oovv_T, starts), t1_t, fvo_t, eabc3,
+               _weights(starts, T, dtype, dev))
+        if act_vir is not None:
+            a3 = [act_vir[s:s + T] for s in starts]
+            out = out + (a3[0][:, None, None] * a3[1][None, :, None]
+                         * a3[2][None, None, :],)
+        return out
+
+    return prep
+
+
+def stack_prep_resident(outs):
+    """K per-tile resident prep tuples as the argument layout of
+    tile_energy_resident_chunk: t2sl/ovbl as per-tile lists (never
+    copied), the rest stacked along a new leading axis."""
+    return ([x[0] for x in outs], [x[1] for x in outs]) + tuple(
+        torch.stack([x[f] for x in outs]) for f in range(2, len(outs[0])))
+
+
 def stack_prep(outs):
     """Stack K per-tile prep tuples along a new leading axis (the
     argument layout of tile_energy_fused_chunk); one tile is only viewed
@@ -279,8 +342,11 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
     Requires Lov/Lvv when ovvv is absent; ovoo/ovov/fock always.
     act_hole/act_particle restrict the energy sum: 'exclude_active' drops
     contributions whose six indices are all active, 'only_active' keeps
-    only those.  chunk: tiles per kernel launch in the fused engine
-    (the kernel's grid takes the tile index as a dimension).
+    only those.  chunk: tiles per kernel launch in the fused and resident
+    engines (the kernels' grids take the tile index as a dimension).
+    dot_precision: the resident engine's W1 mode (RESIDENT_MODES: None or
+    'highest' full dots, 'high' bf16x3, 'default' one bf16 pass); the
+    other engines take None/'highest' only.
     tiles_per_call bounded the length of one compiled TPU program; the
     eager loop here has no such program and ignores it.  tile=0 lets
     lib/memory size the tile edge (CUDA, or with config.MAX_MEMORY set).
@@ -291,14 +357,22 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
             "the mesh-sharded (T) is ROADMAP A17 (multi-GPU), not ported")
     if engine == "auto":
         engine = "fused" if t2.device.type == "cuda" else "xla"
-    if engine in ("flat", "resident"):
+    if engine == "flat":
         raise NotImplementedError(
-            f"engine={engine!r}: 'resident' is ROADMAP B2, not ported yet; "
-            "'flat' is a TPU lane-padding layout and is not ported")
-    if engine not in ("fused", "xla"):
+            "engine='flat' is a TPU lane-padding layout and is not ported")
+    if engine not in ("fused", "resident", "xla"):
         raise ValueError(f"unknown (T) engine {engine!r}; use 'fused', "
-                         "'xla' or 'auto'")
-    tc._check_precision(dot_precision)
+                         "'resident', 'xla' or 'auto'")
+    if engine == "resident":
+        if isinstance(dot_precision, str):
+            dot_precision = dot_precision.lower()
+        if dot_precision not in RESIDENT_MODES:
+            raise ValueError(f"dot_precision={dot_precision!r}: the "
+                             "resident engine takes None, 'highest', "
+                             "'high' or 'default'")
+        rmode = RESIDENT_MODES[dot_precision]
+    else:
+        tc._check_precision(dot_precision)
     nocc, nvir = t1.shape
     if dtype is None:
         dtype = t2.dtype
@@ -318,10 +392,21 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
             e_tiles[n] = tile_energy(trips[n])
         return 2.0 * float(e_tiles.sum())
 
-    prep = make_prep_fused(big)
     eijk, actocc3 = fused_shared(big)
     has_act = "act_occ" in big
     K = max(1, int(chunk))
+    if engine == "resident":
+        prep = make_prep_resident(big)
+        for n0 in range(0, ntrips, K):
+            out = stack_prep_resident([prep(abc) for abc in trips[n0:n0 + K]])
+            kw = {}
+            if has_act:
+                kw = dict(act3=out[9], actocc=actocc3, act_mode=mode)
+            e_tiles[n0:n0 + len(out[0])] = tr.tile_energy_resident_chunk(
+                *out[:7], eijk, *out[7:9], mode=rmode, **kw)
+        return 2.0 * float(e_tiles.sum())
+
+    prep = make_prep_fused(big)
     for n0 in range(0, ntrips, K):
         out = stack_prep([prep(abc) for abc in trips[n0:n0 + K]])
         kw = {}

@@ -3,17 +3,18 @@
 Port of the restricted part of ``pyscf_mpcc_tpu/cc/driver.py``:
 ``CCSD(mf, device=...).run()`` then ``.ccsd_t()``.  Frozen core via an
 integer ``frozen`` (lowest orbitals dropped from the correlation space).
-The device is explicit; the dtype follows lib/device (fp64 on the CPU,
-fp32 with TF32 off on CUDA) unless given.
+The device defaults to CUDA (lib/device.resolve; pass
+``device=torch.device("cpu")`` for the CPU); the dtype follows lib/device
+(fp64 on the CPU, fp32 with TF32 off on CUDA) unless given.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pyscf_mpcc_tpu import config, gto
-from pyscf_mpcc_tpu.lib import logger
-from pyscf_mpcc_tpu.lib.stream import StreamObject
+from pyscf_mpcc_tpu_torch import config, gto
+from pyscf_mpcc_tpu_torch.lib import logger
+from pyscf_mpcc_tpu_torch.lib.stream import StreamObject
 from pyscf_mpcc_tpu_torch.cc import ccsd_t as ccsd_t_mod
 from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
 from pyscf_mpcc_tpu_torch.cc import rccsd
@@ -36,7 +37,8 @@ class RCCSDDriver(StreamObject):
     # spill the DIIS ring here every cycle (preemption-safe restarts)
     diis_file = None
 
-    def __init__(self, mf, frozen=0, mo_coeff=None, *, device, dtype=None):
+    def __init__(self, mf, frozen=0, mo_coeff=None, *, device=None,
+                 dtype=None):
         self.device, self.dtype = _dev.resolve(device, dtype)
         self._scf = mf
         self.mol = mf.mol
@@ -128,7 +130,7 @@ class RCCSDDriver(StreamObject):
         _not_ported("the CCSD geometry scanner", "A7")
 
 
-def CCSD(mf, frozen=0, mo_coeff=None, *, device, dtype=None):
+def CCSD(mf, frozen=0, mo_coeff=None, *, device=None, dtype=None):
     """Factory mirroring the reference's cc.CCSD dispatch; closed-shell
     RHF references only (UCCSD is ROADMAP A11)."""
     if not isinstance(mf, RHF) or np.asarray(mf.mo_coeff).ndim != 2:

@@ -323,12 +323,12 @@ def kernel(eris: RERIs, max_cycle=50, conv_tol=1e-8, conv_tol_normt=1e-6,
            diis_err_dtype=None):
     """Host-driven CCSD iteration with DIIS.
 
-    The DIIS ring is the JAX package's host ``lib.diis.DIIS``: every cycle
+    The DIIS ring is the host ``lib.diis.DIIS``: every cycle
     copies the amplitudes to the host (0.74 GB at the (H2O)8 shape) and
     back.  adiis: a preloaded DIIS object to resume from; diis_file: spill
     the ring there every cycle.  Returns (converged, e_corr, t1, t2)."""
-    from pyscf_mpcc_tpu.lib.diis import DIIS
-    from pyscf_mpcc_tpu.lib import logger as lg
+    from pyscf_mpcc_tpu_torch.lib.diis import DIIS
+    from pyscf_mpcc_tpu_torch.lib import logger as lg
     if diis_backend != "host":
         raise NotImplementedError(
             "diis_backend='device' (lib/device_diis) is ROADMAP A4, "

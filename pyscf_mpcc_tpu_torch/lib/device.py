@@ -8,7 +8,9 @@
   and asserted rather than left at their defaults.  float64 on CUDA is the
   native fp64 path used to check pinned energies on the card.
 
-The device is always explicit: nothing here detects or picks one.
+Entry points run on the CUDA device unless the caller passes a CPU device:
+``resolve(None)`` means ``torch.device("cuda")`` and raises when no card is
+present.  There is no silent CPU fallback.
 """
 
 from __future__ import annotations
@@ -29,13 +31,14 @@ def set_fp32_precision():
 
 
 def resolve(device, dtype=None):
-    """(device, dtype) under the policy above: float64 on the CPU, float32
-    on CUDA unless dtype is given.  On CUDA the TF32 flags are set and
-    asserted as a side effect."""
-    if device is None:
-        raise ValueError("pass an explicit device, e.g. torch.device('cpu') "
-                         "or torch.device('cuda')")
-    device = torch.device(device)
+    """(device, dtype) under the policy above: device None means CUDA;
+    float64 on the CPU, float32 on CUDA unless dtype is given.  On CUDA
+    the TF32 flags are set and asserted as a side effect."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: pass device=torch.device('cpu') "
+            "to run on the CPU")
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
     if device.type == "cuda":

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyscf_mpcc_tpu import config
+from pyscf_mpcc_tpu_torch import config
 
 _MB = 1024 * 1024
 
@@ -25,7 +25,7 @@ def hbm_budget_bytes(device=None, headroom=0.85):
     if device is None or torch.device(device).type != "cuda":
         raise ValueError(
             f"no device memory to query on device={device!r}: pass an "
-            "explicit budget or set pyscf_mpcc_tpu.config.MAX_MEMORY (MB)")
+            "explicit budget or set pyscf_mpcc_tpu_torch.config.MAX_MEMORY (MB)")
     device = torch.device(device)
     free, _ = torch.cuda.mem_get_info(device)
     cached = (torch.cuda.memory_reserved(device)

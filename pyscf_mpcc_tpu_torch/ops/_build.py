@@ -3,8 +3,9 @@
 The library has a plain C interface and is bound with ctypes, so nvcc
 compiles it in seconds (no PyTorch headers).  It is built at first use
 into ``build/torch_kernels/`` at the root of the checkout, under a file
-name keyed on a hash of the source, the flags and the compiler, so a
-stale build is never reused.  The compiler writes to a temporary name
+name keyed on a hash of the source, the headers of ``csrc``, the flags and
+the compiler, so a stale build is never reused.  ``load_all`` builds
+several sources at once, one nvcc process each.  The compiler writes to a temporary name
 that is renamed into place, so parallel processes cannot race on it.
 Nothing is printed unless the build fails, which raises with nvcc's
 stderr.
@@ -13,6 +14,7 @@ stderr.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -20,6 +22,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -29,6 +32,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_locks = {}
 _libs = {}
 # per source: {"seconds": build wall time (0.0 when reused), "path": ...,
 # "log": nvcc's stderr, including the -Xptxas -v register report}
@@ -48,12 +52,16 @@ def _nvcc():
 def load(name):
     """ctypes handle of ``csrc/<name>.cu``, building it if needed."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = os.path.join(_CSRC, name + ".cu")
         nvcc = _nvcc()
-        with open(src, "rb") as f:
-            h = hashlib.sha256(f.read())
+        h = hashlib.sha256()
+        for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(FLAGS).encode())
         h.update(nvcc.encode())
         path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
@@ -80,3 +88,10 @@ def load(name):
                                 log=log)
         _libs[name] = lib
         return lib
+
+
+def load_all(names):
+    """Build and load several sources, one nvcc process each, all started
+    together; returns their handles in order."""
+    with ThreadPoolExecutor(max(1, len(names))) as ex:
+        return list(ex.map(load, names))

@@ -29,7 +29,8 @@
 // one occupied orbit {sigma(i,j,k)}, i >= j >= k, and adds the V term to
 // its six W values in registers.  Each block writes one partial energy: no
 // atomics, so the sum is deterministic; the host wrapper adds the partials
-// in fp64.
+// in fp64.  The w2 dots and the orbit phase are shared with the resident
+// kernel (triples_epilogue.cuh).
 //
 // When the cell's W does not fit in shared memory (fp64 beyond o = 28,
 // fp32 beyond o = 36) the same kernel runs unstaged: each orbit thread
@@ -38,36 +39,14 @@
 
 #include <cuda_runtime.h>
 
+#include "triples_epilogue.cuh"
+
 namespace {
 
+using triples::CellPtrs;
+using triples::perm_of;
+
 constexpr int kThreads = 512;
-constexpr int kRows = 8;    // w2 rows per thread in the staged kernel
-
-// 16-byte vector of T, for the vooo row loads
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  using type = float4;
-  static constexpr int n = 4;
-};
-template <> struct Vec<double> {
-  using type = double2;
-  static constexpr int n = 2;
-};
-
-// perm q in PERMS order (0,1,2) (0,2,1) (1,0,2) (1,2,0) (2,0,1) (2,1,0)
-__host__ __device__ __forceinline__ void perm_of(int q, int& p0, int& p1,
-                                                 int& p2) {
-  p0 = q >> 1;
-  const int lo = (p0 == 0) ? 1 : 0;
-  const int hi = (p0 == 2) ? 1 : 2;
-  p1 = (q & 1) ? hi : lo;
-  p2 = (q & 1) ? lo : hi;
-}
-
-// index in PERMS order of the permutation (a, b, c)
-__device__ __forceinline__ int perm_id(int a, int b, int c) {
-  return 2 * a + (b > c ? 1 : 0);
-}
 
 template <typename T>
 struct Args {
@@ -92,7 +71,7 @@ struct Args {
 
 // shared-memory elements of the staged kernel: padded W, six t2 blocks
 __host__ __device__ __forceinline__ long long staged_elems(int o) {
-  return (long long)o * (o * (o + 1) + 1) + 6LL * o * o;
+  return triples::w_elems(o) + 6LL * o * o;
 }
 
 template <typename T, bool kStaged>
@@ -100,7 +79,6 @@ __global__ void __launch_bounds__(kThreads)
 combine_kernel(const Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* t2s = reinterpret_cast<T*>(smem_raw);   // 6 blocks of o*o
-  __shared__ double red[kThreads / 32];
 
   const int nt = a.nt, o = a.o, oo = o * o;
   const int cell = blockIdx.x;
@@ -131,8 +109,9 @@ combine_kernel(const Args<T> a) {
   }
   const int v[3] = {A, B, C};
 
-  // per-perm offsets of this cell, shared by the block
-  __shared__ long long wbase[6], vbase[6], obase[6], tbase[6], zbase[6];
+  // per-perm inputs of this cell, shared by the block
+  __shared__ long long wbase[6];
+  __shared__ CellPtrs<T> cp;
   if (threadIdx.x < 6) {
     const int q = threadIdx.x;
     int p0, p1, p2;
@@ -141,25 +120,19 @@ combine_kernel(const Args<T> a) {
     wbase[q] = (q < 4)
         ? (((k * Tl + x) * Tl + y) * o) * Tl * oo + z * oo  // + i*T*oo + P
         : (((k * Tl + z) * Tl + x) * Tl + y) * oo * o;      // + P*o + i
-    vbase[q] = ((k * 3 + p0) * Tl + x) * oo * o;
-    obase[q] = ((((k * 3 + p0) * 3 + p1) * Tl + x) * Tl + y) * oo;
-    tbase[q] = ((((k * 3 + p1) * 3 + p0) * Tl + y) * Tl + x) * oo;
-    zbase[q] = ((k * 3 + p2) * Tl + z) * o;
-  }
-  // stage t2p[p2, p1, z, y, :, :] (= t2[n, m, z, y]) for the w2 dots
-  for (int e = threadIdx.x; e < 6 * oo; e += blockDim.x) {
-    const int q = e / oo;
-    int p0, p1, p2;
-    perm_of(q, p0, p1, p2);
-    const long long src = ((((k * 3 + p2) * 3 + p1) * nt + v[p2]) * nt
-                           + v[p1]) * oo;
-    t2s[e] = a.t2p[src + e % oo];
+    cp.vooo[q] = a.vooo + ((k * 3 + p0) * Tl + x) * oo * o;
+    cp.t2zy[q] = a.t2p + ((((k * 3 + p2) * 3 + p1) * Tl + z) * Tl + y) * oo;
+    cp.oovv[q] = a.oovv + ((((k * 3 + p0) * 3 + p1) * Tl + x) * Tl + y) * oo;
+    cp.t2yx[q] = a.t2p + ((((k * 3 + p1) * 3 + p0) * Tl + y) * Tl + x) * oo;
+    cp.t1z[q] = a.t1 + ((k * 3 + p2) * Tl + z) * o;
+    cp.fvoz[q] = a.fvo + ((k * 3 + p2) * Tl + z) * o;
   }
   __syncthreads();
+  // stage t2p[p2, p1, z, y, :, :] (= t2[n, m, z, y]) for the w2 dots
+  triples::stage_t2zy(cp, t2s, o);
+  __syncthreads();
 
-  // padded W strides: (o+1) and o(o+1)+1 are odd, so a warp writing along
-  // any one canonical axis hits 32 different banks
-  const int S1 = o + 1, S0 = o * S1 + 1;
+  const int S1 = triples::w_s1(o), S0 = triples::w_s0(o);
   T* Wsm = t2s + 6 * oo;
   auto widx = [&](int q, int i1, int P1, int P2) -> long long {
     return (q < 4) ? wbase[q] + (long long)i1 * nt * oo + P1 * o + P2
@@ -182,156 +155,38 @@ combine_kernel(const Args<T> a) {
       Wsm[oc[0] * S0 + oc[1] * S1 + oc[2]] = w;
     }
     __syncthreads();
-    // W -= sum_p P_p w2_p, one perm per pass (each pass writes every
-    // element once, at permuted positions, so passes are separated by a
-    // barrier)
-#pragma unroll 1
-    for (int q = 0; q < 6; ++q) {
-      int p0, p1, p2;
-      perm_of(q, p0, p1, p2);
-      const int sx[3] = {S0, S1, 1};
-      const int si = p0 == 0 ? sx[0] : p0 == 1 ? sx[1] : sx[2];
-      const int sj = p1 == 0 ? sx[0] : p1 == 1 ? sx[1] : sx[2];
-      const int sk = p2 == 0 ? sx[0] : p2 == 1 ? sx[1] : sx[2];
-      // thread (grp, k1) computes kRows consecutive rows (i1 j1) of
-      // column k1: the lanes of a warp share the rows, so each vooo load
-      // is a broadcast, and 16-byte loads bring several m at once
-      const T* vq = a.vooo + vbase[q];
-      const T* tq = t2s + q * oo;
-      const bool vec = o % Vec<T>::n == 0
-          && (reinterpret_cast<unsigned long long>(a.vooo) & 15) == 0;
-      const int ngrp = blockDim.x / o;
-      const int grp = threadIdx.x / o, k1 = threadIdx.x - grp * o;
-      for (int row0 = grp * kRows; grp < ngrp && row0 < oo;
-           row0 += ngrp * kRows) {
-        T acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = T(0);
-        if (vec && row0 + kRows <= oo) {
-          using V = typename Vec<T>::type;
-          for (int m0 = 0; m0 < o; m0 += Vec<T>::n) {
-            T tv[Vec<T>::n];
-#pragma unroll
-            for (int c = 0; c < Vec<T>::n; ++c) tv[c] = tq[(m0 + c) * o + k1];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              T vv[Vec<T>::n];
-              *reinterpret_cast<V*>(vv) = __ldg(
-                  reinterpret_cast<const V*>(vq + (row0 + r) * o + m0));
-#pragma unroll
-              for (int c = 0; c < Vec<T>::n; ++c) acc[r] += vv[c] * tv[c];
-            }
-          }
-        } else {
-          for (int m = 0; m < o; ++m) {
-            const T tv = tq[m * o + k1];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r)
-              if (row0 + r < oo) acc[r] += __ldg(vq + (row0 + r) * o + m) * tv;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int row = row0 + r;
-          if (row < oo) {
-            const int i1 = row / o, j1 = row - i1 * o;
-            Wsm[i1 * si + j1 * sj + k1 * sk] -= acc[r];
-          }
-        }
-      }
-      __syncthreads();
-    }
+    // W -= sum_p P_p w2_p (small GEMMs on the staged t2 blocks)
+    triples::subtract_w2(cp, t2s, Wsm, o);
   }
 
-  double acc = 0.0;
-  const int norb = o * (o + 1) * (o + 2) / 6;
-  for (int orb = split * blockDim.x + threadIdx.x; orb < norb;
-       orb += a.nsplit * blockDim.x) {
-    // decode the orbit representative r0 >= r1 >= r2
-    int r0 = 0, before = 0;
-    while (before + (r0 + 1) * (r0 + 2) / 2 <= orb) {
-      before += (r0 + 1) * (r0 + 2) / 2;
-      ++r0;
-    }
-    int rem = orb - before, r1 = 0;
-    while (rem >= r1 + 1) {
-      rem -= r1 + 1;
-      ++r1;
-    }
-    const int r[3] = {r0, r1, rem};
-
-    T Wv[6], Vv[6];
-#pragma unroll
-    for (int s = 0; s < 6; ++s) {
-      int s0, s1, s2;
-      perm_of(s, s0, s1, s2);
-      const int oc[3] = {r[s0], r[s1], r[s2]};   // canonical (i, j, k)
-      T W = kStaged ? Wsm[oc[0] * S0 + oc[1] * S1 + oc[2]] : T(0);
-      T vt = T(0);
+  // the unstaged form computes each W value where it is needed: its six
+  // w1 reads and six w2 dots (each a row of vooo against a staged column)
+  auto wval = [&](const int* oc) -> T {
+    if constexpr (kStaged) {
+      return Wsm[oc[0] * S0 + oc[1] * S1 + oc[2]];
+    } else {
+      T W = T(0);
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
         int p0, p1, p2;
         perm_of(q, p0, p1, p2);
         const int i1 = oc[p0], j1 = oc[p1], k1 = oc[p2];
-        if constexpr (!kStaged) {
-          W += __ldg(a.w[q] + widx(q, i1, (q & 1) ? k1 : j1,
-                                   (q & 1) ? j1 : k1));
-          const T* vr = a.vooo + vbase[q] + (i1 * o + j1) * o;
-          const T* tc = t2s + q * oo + k1;
-          T w2 = T(0);
-          for (int m = 0; m < o; ++m) w2 += __ldg(vr + m) * tc[m * o];
-          W -= w2;
-        }
-        const int ij = i1 * o + j1;
-        vt += T(0.5) * (__ldg(a.oovv + obase[q] + ij)
-                            * __ldg(a.t1 + zbase[q] + k1)
-                        + __ldg(a.t2p + tbase[q] + ij)
-                            * __ldg(a.fvo + zbase[q] + k1));
+        W += __ldg(a.w[q] + widx(q, i1, (q & 1) ? k1 : j1,
+                                 (q & 1) ? j1 : k1));
+        const T* vr = cp.vooo[q] + (i1 * o + j1) * o;
+        const T* tc = t2s + q * oo + k1;
+        T w2 = T(0);
+        for (int m = 0; m < o; ++m) w2 += __ldg(vr + m) * tc[m * o];
+        W -= w2;
       }
-      Wv[s] = W;
-      Vv[s] = W + vt;
+      return W;
     }
-
-#pragma unroll
-    for (int s = 0; s < 6; ++s) {
-      int s0, s1, s2;
-      perm_of(s, s0, s1, s2);
-      const int e0 = r[s0], e1 = r[s1], e2 = r[s2];
-      bool dup = false;
-#pragma unroll
-      for (int u = 0; u < s; ++u) {
-        int u0, u1, u2;
-        perm_of(u, u0, u1, u2);
-        dup |= (r[u0] == e0 && r[u1] == e1 && r[u2] == e2);
-      }
-      if (dup) continue;
-      const int q[3] = {s0, s1, s2};
-      // V at (e1,e2,e0), (e2,e0,e1), (e2,e1,e0), (e0,e2,e1), (e1,e0,e2)
-      const T Z = T(4) * Vv[s]
-          + Vv[perm_id(q[1], q[2], q[0])] + Vv[perm_id(q[2], q[0], q[1])]
-          - T(2) * (Vv[perm_id(q[2], q[1], q[0])]
-                    + Vv[perm_id(q[0], q[2], q[1])]
-                    + Vv[perm_id(q[1], q[0], q[2])]);
-      const int eidx = (e0 * o + e1) * o + e2;
-      T zd = Z / (__ldg(a.eijk + eidx) - eabc);
-      if (a.act_mode) {
-        const T act6 = af * __ldg(a.actocc + eidx);
-        zd *= (a.act_mode == 1) ? T(1) - act6 : act6;
-      }
-      acc += (double)(Wv[s] * zd);
-    }
-  }
-
-  // deterministic block reduction
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double t = 0.0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
-    *out = t * wgt;
-  }
+  };
+  const double acc = triples::orbit_energy(
+      cp, a.eijk, a.actocc, a.act_mode, eabc, af, o,
+      split * blockDim.x + threadIdx.x, a.nsplit * blockDim.x, wval);
+  const double t = triples::block_sum(acc);
+  if (threadIdx.x == 0) *out = t * wgt;
 }
 
 template <typename T>

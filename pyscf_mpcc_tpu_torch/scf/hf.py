@@ -14,10 +14,10 @@ from __future__ import annotations
 import numpy as np
 import scipy.linalg
 
-from pyscf_mpcc_tpu import gto
-from pyscf_mpcc_tpu.lib import logger as lg
-from pyscf_mpcc_tpu.lib.diis import DIIS
-from pyscf_mpcc_tpu.lib.stream import StreamObject
+from pyscf_mpcc_tpu_torch import gto
+from pyscf_mpcc_tpu_torch.lib import logger as lg
+from pyscf_mpcc_tpu_torch.lib.diis import DIIS
+from pyscf_mpcc_tpu_torch.lib.stream import StreamObject
 
 
 class _JKIncore:
@@ -93,8 +93,8 @@ def _atomic_dm_cached(sym, basis):
 def _atomic_rhf_dm(sym, basis):
     """Spherically-averaged fractional-occupation atomic RHF density in
     the given basis (damped fixed-point iteration; guess quality only)."""
-    from pyscf_mpcc_tpu.gto.elements import charge as _elem_charge
-    from pyscf_mpcc_tpu.gto.mole import Mole
+    from pyscf_mpcc_tpu_torch.gto.elements import charge as _elem_charge
+    from pyscf_mpcc_tpu_torch.gto.mole import Mole
     mol = Mole(atom=[[sym, (0.0, 0.0, 0.0)]], basis=basis,
                spin=_elem_charge(sym) % 2)
     mol.build()
@@ -168,7 +168,7 @@ class SCFBase(StreamObject):
         return self.S
 
     def density_fit(self, auxbasis=None):
-        from pyscf_mpcc_tpu.df import DF
+        from pyscf_mpcc_tpu_torch.df import DF
         self.with_df = DF(self.mol, auxbasis=auxbasis)
         self._jk = None
         return self

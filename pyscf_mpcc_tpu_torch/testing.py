@@ -1,6 +1,9 @@
-"""Synthetic DF integrals for smoke runs and benchmarks.
+"""Test and smoke-run inputs: molecules, synthetic DF integrals, random
+(T) problems.
 
-Counterpart of ``__graft_entry__._synthetic_eris``: the same recipe
+``mol_of`` builds the H2O geometries of the JAX package's tests with the
+port's own ``gto``.  ``synthetic_eris`` is the counterpart of
+``__graft_entry__._synthetic_eris``: the same recipe
 (uniform 3-center factors scaled by 0.05, symmetrized Loo/Lvv, a diagonal
 Fock of sorted orbital energies with the occupied block shifted down),
 built on the target device from a seeded ``torch.Generator``.  The two
@@ -15,8 +18,24 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from pyscf_mpcc_tpu_torch import gto
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs, _pair as pair
 from pyscf_mpcc_tpu_torch.lib import device as _dev
+
+# H2O geometries (Angstrom) of the reference's tests: 'sym' is
+# pyscf/cc/test/test_h2o.py, 'tilt' the distorted geometry of the pinned
+# (T) value (pyscf/cc/ccsd_t.py:241)
+GEOMS = {
+    "sym": [[8, (0., 0., 0.)], [1, (0., -0.757, 0.587)],
+            [1, (0., 0.757, 0.587)]],
+    "tilt": [[8, (0., 0., 0.)], [1, (0., -0.957, 0.587)],
+             [1, (0.2, 0.757, 0.487)]],
+}
+
+
+def mol_of(geom="sym", basis="cc-pvdz"):
+    """The port's Mole of an H2O geometry of GEOMS."""
+    return gto.M(atom=GEOMS[geom], basis=basis)
 
 
 def synthetic_eris(nocc=4, nvir=16, naux=32, device=None, dtype=None,

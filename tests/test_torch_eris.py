@@ -11,12 +11,11 @@ import pytest
 import torch
 
 from pyscf_mpcc_tpu import ao2mo as jao2mo
-from pyscf_mpcc_tpu import config
 from pyscf_mpcc_tpu.cc import eris as jeris
 from pyscf_mpcc_tpu.df import DF
 from pyscf_mpcc_tpu.lib import memory as jmemory
 from pyscf_mpcc_tpu.testutil import h2o_ccpvdz, mol_of
-from pyscf_mpcc_tpu_torch import ao2mo, convert
+from pyscf_mpcc_tpu_torch import ao2mo, config, convert
 from pyscf_mpcc_tpu_torch.cc import eris as teris
 from pyscf_mpcc_tpu_torch.lib import memory
 

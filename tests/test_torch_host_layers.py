@@ -1,0 +1,110 @@
+"""The port's copies of the JAX package's host layers (gto, df, lib.diis,
+lib.logger, lib.stream, config) against the originals.
+
+The port imports nothing of pyscf_mpcc_tpu, so it carries these NumPy/C++
+layers itself; they must stay the same functions.  On H2O/cc-pVDZ the
+integrals, the DF factor and a DIIS extrapolation agree to 1e-12 (the same
+code on the same inputs; only the native engine's thread order may move
+the last bits), and the vendored basis library is byte-identical.
+"""
+
+import filecmp
+import os
+
+import numpy as np
+import pytest
+
+from pyscf_mpcc_tpu import config as jconfig
+from pyscf_mpcc_tpu import df as jdf
+from pyscf_mpcc_tpu import gto as jgto
+from pyscf_mpcc_tpu.lib import diis as jdiis
+from pyscf_mpcc_tpu_torch import config, df, gto
+from pyscf_mpcc_tpu_torch.gto import native
+from pyscf_mpcc_tpu_torch.lib import diis, logger, stream
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATOM = [[8, (0., 0., 0.)], [1, (0., -0.757, 0.587)],
+        [1, (0., 0.757, 0.587)]]
+TOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def mols():
+    return (gto.M(atom=ATOM, basis="cc-pvdz"),
+            jgto.M(atom=ATOM, basis="cc-pvdz"))
+
+
+INTEGRALS = {
+    "ovlp": lambda g, m: g.intor_ovlp(m),
+    "kin": lambda g, m: g.intor_kin(m),
+    "hcore": lambda g, m: g.intor_kin(m) + g.intor_nuc(m),
+    "eri": lambda g, m: g.intor_eri(m),
+}
+
+
+@pytest.mark.parametrize("name", list(INTEGRALS))
+def test_gto_integrals_match(mols, name):
+    mol, jmol = mols
+    assert mol.nao == jmol.nao and mol.nelectron == jmol.nelectron
+    assert mol.energy_nuc() == jmol.energy_nuc()
+    a = INTEGRALS[name](gto, mol)
+    b = INTEGRALS[name](jgto, jmol)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=0, atol=TOL)
+
+
+def test_df_factor_matches(mols):
+    mol, jmol = mols
+    b = df.DF(mol).B_ao()
+    jb = jdf.DF(jmol).B_ao()
+    assert b.shape == jb.shape and b.shape[0] > mol.nao
+    np.testing.assert_allclose(b, jb, rtol=0, atol=TOL)
+
+
+def test_diis_extrapolation_matches():
+    rng = np.random.default_rng(2)
+    d, jd = diis.DIIS(space=4), jdiis.DIIS(space=4)
+    x = rng.standard_normal(50)
+    for _ in range(7):
+        x = 0.6 * x + 0.1 * rng.standard_normal(50)
+        err = rng.standard_normal(50) * 1e-2
+        a = d.update(x, xerr=err)
+        b = jd.update(x, xerr=err)
+        np.testing.assert_allclose(a, b, rtol=0, atol=TOL)
+
+
+def test_basis_library_is_identical():
+    src = os.path.join(ROOT, "pyscf_mpcc_tpu", "gto", "basis_data")
+    dst = os.path.join(ROOT, "pyscf_mpcc_tpu_torch", "gto", "basis_data")
+    cmp = filecmp.dircmp(src, dst)
+    assert not (cmp.left_only or cmp.right_only or cmp.diff_files)
+    for sub in cmp.subdirs.values():
+        assert not (sub.left_only or sub.right_only or sub.diff_files)
+
+
+def test_native_engine_builds_outside_the_source_tree():
+    # the port's copy builds its library into build/native at first use
+    assert native._LIB.startswith(os.path.join(ROOT, "build", "native"))
+    if native.available():
+        assert os.path.isfile(native._LIB)
+
+
+def test_config_and_stream_layers():
+    for name in ("MAX_MEMORY", "VERBOSE", "CC_CONV_TOL", "CC_CONV_TOL_NORMT",
+                 "SCF_CONV_TOL", "BASIS_PATH"):
+        assert getattr(config, name) == getattr(jconfig, name)
+    assert config.getattr_cfg("NOT_A_KEY", 7) == 7
+
+    class Obj(stream.StreamObject):
+        tol = 1e-3
+
+        def __init__(self):
+            self._declare_keys()
+
+        def kernel(self):
+            return self.tol
+
+    obj = Obj().set(tol=1e-5)
+    assert obj.tol == 1e-5 and obj.run() is obj
+    log = logger.Logger(verbose=logger.INFO)
+    assert log.timer("")

@@ -12,8 +12,7 @@ import torch
 
 from pyscf_mpcc_tpu.cc import rccsd as jrccsd
 from pyscf_mpcc_tpu.cc.eris import RERIs as JRERIs
-from pyscf_mpcc_tpu.testutil import mol_of
-from pyscf_mpcc_tpu_torch import convert
+from pyscf_mpcc_tpu_torch import convert, testing
 from pyscf_mpcc_tpu_torch.cc import eris as teris_mod
 from pyscf_mpcc_tpu_torch.cc import rccsd as trccsd
 from pyscf_mpcc_tpu_torch.scf import RHF
@@ -127,8 +126,8 @@ def test_pair_ladder_sym_matches_jax(ntile):
 @pytest.fixture(scope="module")
 def h2o_sym_eris():
     """The port's own RHF (sym geometry, incore integrals) -> MO blocks."""
-    from pyscf_mpcc_tpu import gto
-    mf = RHF(mol_of("sym"))
+    from pyscf_mpcc_tpu_torch import gto
+    mf = RHF(testing.mol_of("sym"))
     mf.conv_tol = 1e-13
     mf.conv_tol_grad = 1e-10
     mf.run()

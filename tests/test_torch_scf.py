@@ -8,15 +8,16 @@ import pytest
 from pyscf_mpcc_tpu import scf as jscf
 from pyscf_mpcc_tpu.testutil import mol_of
 from pyscf_mpcc_tpu_torch import scf as tscf
+from pyscf_mpcc_tpu_torch import testing
 
 E_RHF_H2O_CCPVDZ = -76.026765673119627   # pyscf/scf/test/test_rhf.py:372
 
 
 @pytest.mark.parametrize("df", [False, True])
 def test_rhf_matches_jax_rhf(df):
-    mol = mol_of("sym")
     mfs = []
-    for cls in (jscf.RHF, tscf.RHF):
+    for cls, mol in ((jscf.RHF, mol_of("sym")),
+                     (tscf.RHF, testing.mol_of("sym"))):
         mf = cls(mol)
         if df:
             mf.density_fit()
@@ -31,7 +32,7 @@ def test_rhf_matches_jax_rhf(df):
 
 
 def test_unported_scf_surface_raises():
-    mol = mol_of("sym", basis="sto-3g")
+    mol = testing.mol_of("sym", basis="sto-3g")
     for cls in (tscf.UHF, tscf.ROHF):
         with pytest.raises(NotImplementedError):
             cls(mol)

@@ -1,11 +1,13 @@
-"""The DF-CCSD(T) slice of the port end to end, and its jax-free imports.
+"""The DF-CCSD(T) slice of the port end to end, and its standalone imports.
 
 - The user entry points, RHF(mol).density_fit().run() -> CCSD(mf,
   device=cpu).run() -> .ccsd_t(), against the JAX package's RCCSDDriver
   on H2O/cc-pVDZ: E_corr to 1e-9 and E(T) to 1e-10.
-- No module of the port (nor chip_smoke.py) imports jax, and the port
-  imports the JAX package only from its jax-free host layers; a fresh
-  interpreter runs a small synthetic CCSD(T) with jax never loaded.
+- No module of the port (nor chip_smoke.py) imports jax or anything of
+  the JAX package; a fresh interpreter runs a small synthetic CCSD(T)
+  through the fused and resident engines with neither ever loaded.
+- Without a device argument the entry points run on CUDA, and raise
+  where there is no card.
 """
 
 import ast
@@ -13,36 +15,39 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from conftest import clean_child_env
-from pyscf_mpcc_tpu import config
+from pyscf_mpcc_tpu import config as jconfig
 from pyscf_mpcc_tpu import scf as jscf
 from pyscf_mpcc_tpu.cc.driver import RCCSDDriver
 from pyscf_mpcc_tpu.testutil import mol_of
+from pyscf_mpcc_tpu_torch import config, testing
 from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+from pyscf_mpcc_tpu_torch.lib.device import resolve
 from pyscf_mpcc_tpu_torch.scf import RHF
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "pyscf_mpcc_tpu_torch")
-# the JAX package's layers that import no jax
-ALLOWED = ("pyscf_mpcc_tpu.gto", "pyscf_mpcc_tpu.df",
-           "pyscf_mpcc_tpu.lib.diis", "pyscf_mpcc_tpu.lib.logger",
-           "pyscf_mpcc_tpu.lib.stream", "pyscf_mpcc_tpu.config")
+# modules of the JAX package the port may import: none (its host layers
+# are copies inside the port)
+ALLOWED = ()
 
 
 def test_df_slice_matches_jax_driver(monkeypatch):
     # the JAX memory planner falls back to 12 GiB on the CPU backend; give
-    # both packages that budget so they plan the same tiles
+    # both packages (each reads its own config) that budget so they plan
+    # the same tiles
+    monkeypatch.setattr(jconfig, "MAX_MEMORY", 12 * 1024)
     monkeypatch.setattr(config, "MAX_MEMORY", 12 * 1024)
-    mol = mol_of("sym")
-    jmf = jscf.RHF(mol).density_fit().run()
+    jmf = jscf.RHF(mol_of("sym")).density_fit().run()
     jcc = RCCSDDriver(jmf).run()
     jet = jcc.ccsd_t()
-    mf = RHF(mol).density_fit().run()
+    mf = RHF(testing.mol_of("sym")).density_fit().run()
     assert abs(mf.e_tot - jmf.e_tot) < 1e-10
     cc = CCSD(mf, device=torch.device("cpu")).run()
     assert cc.converged and cc.t2.dtype == torch.float64
@@ -99,8 +104,15 @@ from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd
 er = testing.synthetic_eris(4, 11, 30, device="cpu", build_ovvv=False)
 conv, e, t1, t2 = rccsd.kernel(er, ntile=2, conv_tol=1e-10)
 et = ccsd_t.kernel(t1, t2, er, tile=4, engine="fused")
-assert conv and e < 0 and et < 0, (conv, e, et)
+er_ = ccsd_t.kernel(t1, t2, er, tile=4, engine="resident")
+assert conv and e < 0 and et < 0 and abs(er_ - et) < 1e-10, (conv, e, et)
+mol = pkg.M(atom="O 0 0 0; H 0 0.757 0.587; H 0 -0.757 0.587",
+            basis="cc-pvdz")
+from pyscf_mpcc_tpu_torch.scf import RHF
+assert RHF(mol).density_fit().run().converged
 assert "jax" not in sys.modules
+assert not any(m == "pyscf_mpcc_tpu" or m.startswith("pyscf_mpcc_tpu.")
+               for m in sys.modules), sorted(sys.modules)
 print("NOJAX_OK", e, et)
 """
 
@@ -113,3 +125,17 @@ def test_port_runs_without_jax():
     if "JAX_PRELOADED" in proc.stdout:
         pytest.skip("jax is loaded at interpreter start here")
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_entry_points_default_to_cuda():
+    mf = RHF(testing.mol_of("sym"))
+    mf.mo_coeff = np.eye(mf.mol.nao)
+    if torch.cuda.is_available():
+        assert CCSD(mf).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CCSD(mf)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve(None)
+    assert resolve(torch.device("cpu")) == (torch.device("cpu"),
+                                            torch.float64)

@@ -7,7 +7,8 @@ against the JAX package.
   both as numpy), at tile=3 with padded virtuals.
 - The port's ccsd_t.kernel, engines 'xla' and 'fused', against the JAX
   ccsd_t.kernel(engine='xla') over tiles 3, 5 and 8.
-- The pinned E(T) of the distorted H2O/cc-pVDZ geometry.
+- The pinned E(T) of the distorted H2O/cc-pVDZ geometry, through the
+  'xla', 'fused' and 'resident' engines.
 
 fp64 on both sides; tolerance rtol 1e-10 / atol 1e-13 (summation order).
 """
@@ -23,7 +24,6 @@ import torch
 
 from pyscf_mpcc_tpu.cc import ccsd_t as jccsd_t
 from pyscf_mpcc_tpu.ops import triples_combine as jtc
-from pyscf_mpcc_tpu.testutil import mol_of
 from pyscf_mpcc_tpu_torch import convert, testing
 from pyscf_mpcc_tpu_torch.cc import ccsd_t
 from pyscf_mpcc_tpu_torch.cc.driver import CCSD
@@ -185,8 +185,8 @@ def test_kernel_active_mask_matches_jax_xla(jax_energies, name, mode,
 
 def test_unported_engines_raise():
     args = _port("df")
-    for kw in (dict(engine="resident"), dict(engine="flat"),
-               dict(mesh=object()), dict(dot_precision="high")):
+    for kw in (dict(engine="flat"), dict(mesh=object()),
+               dict(dot_precision="high")):
         with pytest.raises(NotImplementedError):
             ccsd_t.kernel(*args, tile=3, **kw)
     with pytest.raises(ValueError):
@@ -194,13 +194,13 @@ def test_unported_engines_raise():
 
 
 def test_pinned_e_t():
-    mf = RHF(mol_of("tilt"))
+    mf = RHF(testing.mol_of("tilt"))
     mf.conv_tol = 1e-13
     mf.conv_tol_grad = 1e-10
     mf.run()
     cc = CCSD(mf, device=CPU)
     cc.set(conv_tol=1e-12, conv_tol_normt=1e-10, max_cycle=200).run()
     assert cc.converged
-    for engine in ("xla", "fused"):
+    for engine in ("xla", "fused", "resident"):
         et = ccsd_t.kernel(cc.t1, cc.t2, cc.eris, tile=8, engine=engine)
         assert abs(et - E_T_REF) < 1e-10
