@@ -21,13 +21,21 @@ each, started together), then runs:
   4. the (H2O)8/cc-pVTZ frozen-core shape (nocc=32, nvir=424,
      naux=1216) with synthetic DF integrals: CCSD sweep time, rate and
      peak memory, an fp32-vs-fp64 sweep check, and a 64-tile (T) probe
-     on the fused engine;
+     on the fused engine, and the same probe at chunk=4 (four tiles a
+     launch of the epilogue kernel) with the kernel alone timed at K=4
+     against K=1;
   5. the resident (T) engine (triples_resident, W1 dots in the kernel):
      (a) the kernel against its plain version on random problems (fp64
      mode f32, fp32 modes split and bf16), (b) one (H2O)8 tile in modes
      f32 and split with timings beside the fused engine's path, (c) the
      pinned fp64 E(T) through engine='resident', (d) the 64-tile probe
-     through engine='resident' in modes f32 and split beside phase 4's.
+     through engine='resident' in modes f32 and split beside phase 4's;
+  6. the (T) design probes (pyscf_mpcc_tpu_torch/tools): p1-p4 of
+     triples_probe_v6 and the slab relayout at the JAX scripts' own
+     shapes through their entry points, then each of their five kernels
+     against its plain version (dispatch, smem and slab exact; dots rtol
+     1e-5 on random inputs in each mode; stream fp64 sums rtol 1e-10),
+     with its time, the plain version's, a library call's and the bound.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, its error against the
@@ -69,6 +77,10 @@ ATOL_MAIN_FP32 = 1e-6
 # resident 'split' (bf16x3) vs 'f32' probe energy: the JAX package's own
 # wiring bound for the mode (tests/test_triples_fused.py:145)
 RTOL_SPLIT = 5e-4
+# probe dots kernel vs plain, random inputs of both signs: both sum the
+# same fp32 (or exact bf16) products over K = 424 in different orders;
+# the atol is this times the largest plain value (cancellation)
+RTOL_DOTS = 1e-5
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
@@ -163,6 +175,8 @@ def main():
     from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
     from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
     from pyscf_mpcc_tpu_torch.scf import RHF
+    from pyscf_mpcc_tpu_torch.tools import slab_loop_probe as sp
+    from pyscf_mpcc_tpu_torch.tools import triples_probe_v6 as pv
 
     f64, f32 = torch.float64, torch.float32
     dev = torch.device("cuda")
@@ -174,7 +188,8 @@ def main():
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
     t0 = time.perf_counter()
-    kernels = ("triples_combine", "triples_resident")
+    kernels = ("triples_combine", "triples_resident", "triples_probe",
+               "slab_relayout")
     _build.load_all(kernels)
     build_s = time.perf_counter() - t0
     say(0, "env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -392,6 +407,46 @@ def main():
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         max_memory_mb=config.MAX_MEMORY)
 
+    # the chunk form (tile_energy_fused_chunk): the probe at chunk=4, and
+    # the kernel alone on four stacked tiles (K=4) against the same tiles
+    # one launch each (K=1)
+    e_c4, probe_ms_c4, c4_launches = probe("fused", tc, chunk=4)
+    if not (abs(e_c4 - e_probe) <= RTOL_TILE_FP32 * abs(e_probe)
+            and c4_launches > 0):
+        raise RuntimeError(f"chunk=4 probe {e_c4!r} vs chunk=1 {e_probe!r} "
+                           f"({c4_launches} launches)")
+    bigc = ccsd_t._prepare(bt1, bt2, beris, TILE, f32, None, None, 1.0,
+                           "fused")
+    prepc = ccsd_t.make_prep_fused(bigc)
+    eijk_c = ccsd_t.fused_shared(bigc)[0]
+    trips4 = ccsd_t._tile_triples(bigc["nvp"] // TILE)[:4]
+    outs = [prepc(abc) for abc in trips4]
+    del bigc, prepc
+    ncell4 = sum(int((ccsd_t._weights([a * TILE, b * TILE, c * TILE], TILE,
+                                      f64, dev) != 0).sum())
+                 for a, b, c in trips4)
+    args1 = [(*x[:8], eijk_c, *x[8:10]) for x in outs]
+    c4 = ccsd_t.stack_prep(outs)
+    args4 = (*c4[:8], eijk_c, *c4[8:10])
+    e_k4 = tc.tile_energy_fused_chunk(*args4)
+    e_k1 = torch.stack([tc.tile_energy_fused(*a) for a in args1])
+    torch.testing.assert_close(e_k4, e_k1, rtol=RTOL_FP64, atol=1e-14)
+    chunk_ms = cuda_ms(torch, lambda: tc.tile_energy_fused_chunk(*args4),
+                       10) / 4
+    single_ms = cuda_ms(torch, lambda: [tc.tile_energy_fused(*a)
+                                         for a in args1], 10) / 4
+    chunk_plain_ms = cuda_ms(
+        torch, lambda: tc.tile_energy_fused_reference_chunk(*args4), 3) / 4
+    chunk_bound = bound_ms(nbytes(args4) + 4 * 8 * TILE ** 3,
+                           {"fp32": 2 * 6 * ncell4 * NOCC ** 4})
+    say(4, "(T) probe chunk=4", tiles=NPROBE, launches=c4_launches,
+        ms_per_tile=f"{probe_ms_c4:.3f}", ms_per_tile_chunk1=f"{probe_ms:.3f}",
+        e_probe=repr(e_c4), kernel_ms_per_tile_k4=f"{chunk_ms:.3f}",
+        kernel_ms_per_tile_k1=f"{single_ms:.3f}",
+        plain_ms_per_tile_k4=f"{chunk_plain_ms:.3f}",
+        bound_ms_per_tile=f"{chunk_bound[0] / 4:.3f}", cells=ncell4)
+    del outs, args1, c4, args4
+
     # ---- phase 5: the resident (T) engine --------------------------------
     def resident_chunk(nocc, nvir, seed, dtype, tile, tiles, act, df):
         t1, t2, er = testing.triples_tensors(
@@ -543,6 +598,163 @@ def main():
         clocks_after=json.dumps(nvidia_smi(CLOCKS)),
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
+    # ---- phase 6: the (T) design probes ----------------------------------
+    # (a) the probes' entry points at the JAX scripts' shapes, each raising
+    # if its value is off its closed form; the counts are read just after
+    for k in pv.launch_count:
+        pv.launch_count[k] = 0
+    sp.launch_count = 0
+    r1 = pv.p1_dispatch(dev)
+    r2 = pv.p2_smem(dev)["cap"]
+    r3 = pv.p3_dots(dev)
+    r4 = pv.p4_stream(dev)["fetch"]
+    r5 = sp.main(dev)
+    probe_launches = dict(pv.launch_count, slab=sp.launch_count)
+    if not all(probe_launches.values()):
+        raise RuntimeError(f"a probe kernel was not launched: "
+                           f"{probe_launches}")
+    if r2["cap"] != r2["optin"]:
+        raise RuntimeError(f"smem cap {r2['cap']} != optin {r2['optin']}")
+    say(6, "probe entry points ok", launches=json.dumps(probe_launches),
+        smem_cap=r2["cap"], smem_optin=r2["optin"],
+        smem_blocks_per_sm=r2["blocks_per_sm"],
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    # (b) each kernel against its plain version on seeded random inputs;
+    # the times of the plain versions and the library calls come from the
+    # probes' own timer (pv.cuda_ms), which keeps the host's launch gaps out
+    # of the span, as the probes' kernel times do
+    gen6 = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen6, device=dev) * 2 - 1
+
+    rec = {}
+    x = rand(1, 1)
+    for grid in ((pv.T,), (pv.T, pv.T)):
+        if not torch.equal(pv.dispatch(x, grid), pv.dispatch_reference(x)):
+            raise RuntimeError(f"dispatch grid={grid} differs from plain")
+    g1 = r1[str((pv.T,))]
+    rec["dispatch"] = dict(
+        err=0.0, ms=g1["ms_graph"],
+        plain_ms=pv.cuda_ms(lambda: pv.dispatch_reference(x), 64, dev),
+        bound=bound_ms(2 * 4, {}), library=None)
+    g2 = r1[str((pv.T, pv.T))]
+    say(6, "p1 dispatch ok (exact)",
+        ms_stream_graph_grid_T=f"{g1['ms']:.5f}/{g1['ms_graph']:.5f}",
+        ms_stream_graph_grid_TxT=f"{g2['ms']:.5f}/{g2['ms_graph']:.5f}",
+        plain_ms=f"{rec['dispatch']['plain_ms']:.5f}",
+        bound_ms=f"{rec['dispatch']['bound'][0]:.2e}")
+
+    x = rand(8, pv.OO)
+    if not torch.equal(pv.smem_copy(x, r2["cap"]), pv.smem_copy_reference(x)):
+        raise RuntimeError("smem kernel differs from plain")
+    rec["smem"] = dict(
+        err=0.0, ms=r2["ms"],
+        plain_ms=pv.cuda_ms(lambda: pv.smem_copy_reference(x), 20, dev),
+        bound=bound_ms(4 * pv.OO + 4, {}), library=None)
+    say(6, "p2 smem ok (exact)", cap_bytes=r2["cap"],
+        ms=f"{r2['ms']:.5f}", plain_ms=f"{rec['smem']['plain_ms']:.5f}",
+        bound_ms=f"{rec['smem']['bound'][0]:.2e}")
+
+    reps = pv.REPS * pv.T
+    err3 = 0.0
+    for (M, K, N, tag) in pv.p3_shapes():
+        a, b = rand(M, K), rand(K, N)
+        a16, b16 = a.bfloat16(), b.bfloat16()
+        lib_ms = {
+            "f32": pv.cuda_ms(lambda: [a @ b for _ in range(reps)], 3, dev),
+            "bf16": pv.cuda_ms(lambda: [a16 @ b16 for _ in range(reps)], 3,
+                               dev)}
+        for mode in ("bf16", "split", "f32"):
+            out, cs = pv.dots(a, b, mode, reps)
+            ref, rcs = pv.dots_reference(a, b, mode, reps)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            torch.testing.assert_close(out, ref, rtol=RTOL_DOTS,
+                                       atol=RTOL_DOTS * scale)
+            torch.testing.assert_close(
+                cs, rcs, rtol=RTOL_DOTS,
+                atol=RTOL_DOTS * rcs.abs().max().item())
+            err = (out - ref).abs().max().item()
+            err3 = max(err3, err)
+            fl = 2.0 * M * K * N * reps
+            bnd = bound_ms((M * K + K * N + M * pv.OUT_COLS) * 4
+                           + cs.numel() * 8,
+                           {"fp32": fl} if mode == "f32" else
+                           {"bf16": fl * (3 if mode == "split" else 1)})
+            plain = pv.cuda_ms(
+                lambda: pv.dots_reference(a, b, mode, reps), 3, dev)
+            r = r3[f"{tag}/{mode}"]
+            lib = lib_ms["f32" if mode == "f32" else "bf16"]
+            if tag == "A" and mode == "bf16":
+                rec["dots"] = dict(err=err3, ms=r["ms"], plain_ms=plain,
+                                   bound=bnd, library=lib)
+            say(6, f"p3 dots {tag} {mode} ok", shape=f"({M}x{K})x({K}x{N})",
+                reps=reps, abs_err=f"{err:.2e}", scale=f"{scale:.3e}",
+                rtol=RTOL_DOTS, ms=f"{r['ms']:.4f}",
+                tflops=f"{r['rate']:.1f}",
+                gb_read=f"{r['bytes_read'] / 1e9:.3f}",
+                bound_ms=f"{bnd[0]:.4f}", plain_ms=f"{plain:.4f}",
+                library_ms=f"{lib:.4f}", library_ms_f32=f"{lib_ms['f32']:.4f}")
+    rec["dots"]["err"] = err3
+
+    t2r, ovr = (rand(*x.shape) for x in pv.p4_inputs(dev, f32))
+    v_k, part = pv.stream_sum(t2r, ovr)
+    v_p, tot = pv.stream_sum_reference(t2r, ovr)
+    torch.cuda.synchronize()
+    err4 = abs(part.sum().item() - tot.sum().item())
+    if not (err4 <= RTOL_FP64 * abs(tot.sum().item())
+            and abs(v_k.item() - v_p.item()) <= 1e-6 * abs(v_p.item())):
+        raise RuntimeError(f"stream: {part.sum().item()!r} vs "
+                           f"{tot.sum().item()!r}, value {v_k.item()!r} vs "
+                           f"{v_p.item()!r}")
+    flush = torch.empty(pv.FLUSH_BYTES // 4, device=dev)
+    cold = dict(before=lambda: flush.sum())
+    rec["stream"] = dict(
+        err=err4, ms=r4["ms"],
+        plain_ms=pv.cuda_ms(lambda: pv.stream_sum_reference(t2r, ovr), 10,
+                            dev, **cold),
+        bound=bound_ms(r4["bytes"] + 8 * 4 * torch.cuda.get_device_properties(
+            dev).multi_processor_count + 4, {}),
+        library=pv.cuda_ms(lambda: t2r.sum() + ovr.sum(), 10, dev, **cold))
+    del flush, t2r, ovr
+    say(6, "p4 stream ok", bytes=r4["bytes"], abs_err=f"{err4:.2e}",
+        rtol=RTOL_FP64, ms_cold=f"{r4['ms']:.4f}",
+        gbs_cold=f"{r4['rate']:.0f}", ms_warm=f"{r4['ms_warm']:.4f}",
+        gbs_warm=f"{r4['rate_warm']:.0f}",
+        bound_ms=f"{rec['stream']['bound'][0]:.4f}",
+        plain_ms_cold=f"{rec['stream']['plain_ms']:.4f}",
+        library_ms_cold=f"{rec['stream']['library']:.4f}")
+
+    w = rand(sp.T, sp.o, sp.T, sp.o * sp.o)
+    out = sp.relayout(w)
+    w5 = w.view(sp.T, sp.o, sp.T, sp.o, sp.o)
+    if not (torch.equal(out, sp.relayout_reference(w)) and torch.equal(
+            sp.probe_value(out), w5[0, 0, 0, 0, 0] + w5[1, 1, 1, 1, 1])):
+        raise RuntimeError("slab relayout differs from plain")
+    rec["slab"] = dict(
+        err=0.0, ms=r5["ms"],
+        plain_ms=pv.cuda_ms(lambda: sp.relayout_reference(w), 20, dev),
+        bound=bound_ms(r5["bytes"], {}),
+        library=pv.cuda_ms(lambda: w.view(sp.T, sp.o, sp.T, sp.o, sp.o)
+                           .permute(0, 2, 3, 1, 4).contiguous(), 20, dev))
+    del w, out, w5
+    say(6, "slab relayout ok (bitwise)", bytes=r5["bytes"],
+        ms=f"{r5['ms']:.4f}", gbs=f"{r5['rate']:.0f}",
+        bound_ms=f"{rec['slab']['bound'][0]:.4f}",
+        plain_ms=f"{rec['slab']['plain_ms']:.4f}",
+        library_ms=f"{rec['slab']['library']:.4f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
+    probe_rows = [
+        ("dispatch", probe_src, "tools/triples_probe_v6.py:53"),
+        ("smem", probe_src, "tools/triples_probe_v6.py:79"),
+        ("dots", probe_src, "tools/triples_probe_v6.py:123"),
+        ("stream", probe_src, "tools/triples_probe_v6.py:154"),
+        ("slab", "pyscf_mpcc_tpu_torch/ops/csrc/slab_relayout.cu",
+         "tools/slab_loop_probe.py:39")]
     rf = res["f32"]
     print(json.dumps({"kernels": [{
         "name": "triples_combine", "route": "cuda",
@@ -557,7 +769,14 @@ def main():
         "launches": res_launches, "max_abs_err": rf["err"],
         "ms": rf["ms"], "plain_ms": rf["plain_ms"],
         "bound_ms": rf["bound"][0], "bound_by": rf["bound"][1],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": f"probe_{name}", "route": "cuda", "source": src,
+        "replaces": rep, "launches": probe_launches[name],
+        "max_abs_err": rec[name]["err"], "ms": rec[name]["ms"],
+        "plain_ms": rec[name]["plain_ms"], "bound_ms": rec[name]["bound"][0],
+        "bound_by": rec[name]["bound"][1],
+        "library_ms": rec[name]["library"]}
+        for name, src, rep in probe_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,10 +39,10 @@
 // 512 cells at one block per SM make 3.9 waves; mma.sync and not wgmma,
 // no TMA.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "triples_epilogue.cuh"
 
 namespace {
@@ -223,33 +223,14 @@ __device__ void w1_pair_ffma(const T* A1, const T* A2, const T* B, T* Wsm,
 }
 
 // ---------------------------------------------------------------------------
-// W1, modes split and bf16: the same product on the tensor cores.
-// mma.sync m16n8k16 (A row-major, B column-major, bf16 in, fp32
-// accumulate).  Staged as bf16 pairs in 32-bit words: A as [row][k], B
+// W1, modes split and bf16: the same product on the tensor cores
+// (mma_bf16.cuh).  Staged as bf16 pairs in 32-bit words: A as [row][k], B
 // transposed as [column][k]; the 20-word row stride makes the fragment
 // loads of a warp hit 32 different banks.  Warp w owns rows
 // 32(w/8)..+31 and columns 32(w%8)..+31: 2 x 4 tiles of 16 x 8.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
-  const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
-  const __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
-  const __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
-  hi = (uint32_t)__bfloat16_as_ushort(h0)
-       | ((uint32_t)__bfloat16_as_ushort(h1) << 16);
-  lo = (uint32_t)__bfloat16_as_ushort(l0)
-       | ((uint32_t)__bfloat16_as_ushort(l1) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using mma::mma_bf16;
+using mma::split2;
 
 template <bool kSplitMode>
 __device__ void w1_pair_mma(const float* A1, const float* A2, const float* B,
