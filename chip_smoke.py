@@ -24,12 +24,18 @@ each, started together), then runs:
      on the fused engine, and the same probe at chunk=4 (four tiles a
      launch of the epilogue kernel) with the kernel alone timed at K=4
      against K=1;
-  5. the resident (T) engine (triples_resident, W1 dots in the kernel):
-     (a) the kernel against its plain version on random problems (fp64
-     mode f32, fp32 modes split and bf16), (b) one (H2O)8 tile in modes
-     f32 and split with timings beside the fused engine's path, (c) the
-     pinned fp64 E(T) through engine='resident', (d) the 64-tile probe
-     through engine='resident' in modes f32 and split beside phase 4's;
+  5. the resident (T) engine (triples_resident, W1 dots in the kernel;
+     modes split and bf16 on wgmma with operands split into bf16 once by
+     the prep, mode f32 on FFMA): (a) the kernel against its plain
+     version on random problems (fp64 mode f32, fp32 modes split and
+     bf16), (b) one (H2O)8 tile in modes f32, split and bf16 through the
+     prep of each mode: the kernel's time, its W1 share (its time less
+     its time with F cut to one k-chunk of the mode) and W1 rate, the
+     path's time, the one-time cost of splitting t2, beside the fused
+     engine's path, (c) the pinned fp64 E(T) through engine='resident',
+     (d) the 64-tile probe through engine='resident' in modes f32, split
+     (through engine='auto', which routes dot_precision='high' there) and
+     bf16, beside phase 4's;
   6. the (T) design probes (pyscf_mpcc_tpu_torch/tools): p1-p4 of
      triples_probe_v6 and the slab relayout at the JAX scripts' own
      shapes through their entry points, then each of their five kernels
@@ -198,7 +204,7 @@ def main():
         kernel_build_s=f"{build_s:.2f}")
     for name in kernels:
         for ln in _build.build_info[name]["log"].splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "wgmma" in ln:
                 say(0, "ptxas", kernel=name, line=json.dumps(ln.strip()))
     say(0, "clocks", sm_max_power_temp=json.dumps(nvidia_smi(CLOCKS)))
 
@@ -431,6 +437,10 @@ def main():
     e_k4 = tc.tile_energy_fused_chunk(*args4)
     e_k1 = torch.stack([tc.tile_energy_fused(*a) for a in args1])
     torch.testing.assert_close(e_k4, e_k1, rtol=RTOL_FP64, atol=1e-14)
+    chunk_err = float((e_k4 - tc.tile_energy_fused_reference_chunk(
+        *args4)).abs().max())
+    if not chunk_err <= RTOL_TILE_FP32 * float(e_k4.abs().max()):
+        raise RuntimeError(f"chunk kernel vs plain: {chunk_err}")
     chunk_ms = cuda_ms(torch, lambda: tc.tile_energy_fused_chunk(*args4),
                        10) / 4
     single_ms = cuda_ms(torch, lambda: [tc.tile_energy_fused(*a)
@@ -448,7 +458,8 @@ def main():
     del outs, args1, c4, args4
 
     # ---- phase 5: the resident (T) engine --------------------------------
-    def resident_chunk(nocc, nvir, seed, dtype, tile, tiles, act, df):
+    def resident_chunk(nocc, nvir, seed, dtype, tile, tiles, act, df,
+                       mode="f32"):
         t1, t2, er = testing.triples_tensors(
             *testing.random_triples_problem(nocc, nvir, seed,
                                             naux=11 if df else None),
@@ -456,7 +467,7 @@ def main():
         kw = dict(act_hole=[0, 2], act_particle=[1, 3, 4]) if act \
             else dict(act_hole=None, act_particle=None)
         big = ccsd_t._prepare(t1, t2, er, tile, dtype, kw["act_hole"],
-                              kw["act_particle"], 1.0, "resident")
+                              kw["act_particle"], 1.0, "resident", mode)
         prep = ccsd_t.make_prep_resident(big)
         eijk, actocc = ccsd_t.fused_shared(big)
         trips = ccsd_t._tile_triples(big["nvp"] // tile)
@@ -488,45 +499,65 @@ def main():
     for mode in ("split", "bf16"):
         for act in (None, "only_active"):
             check_resident(*resident_chunk(5, 9, 4, f32, 3, range(4), act,
-                                           True),
+                                           True, mode),
                            mode, RTOL_TILE_FP32, 1e-9)
             nchk += 1
     say(5, "random problems ok", cases=nchk, rtol_fp64_f32=RTOL_FP64,
         rtol_fp32_split_bf16=RTOL_TILE_FP32)
 
-    # (b) one tile of the bench shape, modes f32 and split
+    # (b) one tile of the bench shape in each W1 mode, through the prep of
+    # that mode (split, bf16: t2 split into bf16 once per call, each tile's
+    # ov blocks once per tile)
     abc = (5, 3, 1)
-    bigr = ccsd_t._prepare(bt1, bt2, beris, TILE, f32, None, None, 1.0,
-                           "resident")
-    prep_r = ccsd_t.make_prep_resident(bigr)
-    eijk = ccsd_t.fused_shared(bigr)[0]
-    out = prep_r(abc)
-    rargs = (*out[:7], eijk, *out[7:9])
-
-    def to64(a):
-        return [to64(x) for x in a] if isinstance(a, (list, tuple)) \
-            else a.double()
-
-    e_r64 = float(tr.tile_energy_resident_reference(*to64(rargs),
-                                                    mode="f32"))
+    # k depth of one staged chunk of the kernel in each mode (f32:
+    # ffma_bk<float> of triples_resident.cu); the W1 share is the kernel's
+    # time less its time with F cut to one chunk
+    kchunk = {"f32": 16, **tr.MMA_KC}
     bigf = ccsd_t._prepare(bt1, bt2, beris, TILE, f32, None, None, 1.0,
                            "fused")
     prep_f = ccsd_t.make_prep_fused(bigf)
+    eijk = ccsd_t.fused_shared(bigf)[0]
 
     def fused_path():
         o = prep_f(abc)
         return tc.tile_energy_fused(*o[:8], eijk, *o[8:10])
 
-    def resident_path(mode):
-        o = prep_r(abc)
-        return tr.tile_energy_resident(*o[:7], eijk, *o[7:9], mode=mode)
+    def to64(a):
+        return [to64(x) for x in a] if isinstance(a, (list, tuple)) \
+            else a.double()
 
-    # the same cells with the W1 dots cut to F = 16 of 424: what is left
-    # is the w2 dots, the orbit phase and the launch
-    cut = [x[:, :16].contiguous() for x in rargs[0]]
-    cargs = (cut, [x[..., :16].contiguous() for x in rargs[1]], *rargs[2:])
+    def cut_f(x, mode, axis):
+        """A W1 operand (or (hi, lo) pair) with f cut to its first k-chunk:
+        the f axis of a dense one, the chunk axis of a tiled one."""
+        if isinstance(x, tuple):
+            return tuple(cut_f(h, mode, axis) for h in x)
+        if mode == "f32":
+            return x.narrow(axis, 0, kchunk[mode]).contiguous()
+        return x.narrow(axis, 0, 1).contiguous()
+
     res = {}
-    for mode in ("f32", "split"):
+    w1_flops = 2 * 6 * ncell * NOCC ** 3 * NVIR
+    for mode in ("f32", "split", "bf16"):
+        bigr = ccsd_t._prepare(bt1, bt2, beris, TILE, f32, None, None, 1.0,
+                               "resident", mode)
+        split_ms = (cuda_ms(torch, lambda: tr.t2_operand(
+            bigr["t2T"], mode), 3) if mode != "f32" else 0.0)
+        prep_r = ccsd_t.make_prep_resident(bigr)
+        out = prep_r(abc)
+        rargs = (*out[:7], eijk, *out[7:9])
+        if mode == "f32":
+            e_r64 = float(tr.tile_energy_resident_reference(
+                *to64(rargs), mode="f32"))
+
+        def resident_path(prep_r=prep_r, mode=mode):
+            o = prep_r(abc)
+            return tr.tile_energy_resident(*o[:7], eijk, *o[7:9], mode=mode)
+
+        kc = kchunk[mode]
+        # t2: f is axis 1 dense, the chunk axis 1 tiled; ov: 3 and 2
+        cargs = ([cut_f(x, mode, 1) for x in rargs[0]],
+                 [cut_f(x, mode, 3 if mode == "f32" else 2)
+                  for x in rargs[1]], *rargs[2:])
         e_k = float(tr.tile_energy_resident(*rargs, mode=mode))
         e_p = float(tr.tile_energy_resident_reference(*rargs, mode=mode))
         err = abs(e_k - e_p)
@@ -537,12 +568,13 @@ def main():
             *rargs, mode=mode), 10)
         ms_rp = cuda_ms(torch, lambda: tr.tile_energy_resident_reference(
             *rargs, mode=mode), 3)
-        ms_path = cuda_ms(torch, lambda: resident_path(mode), 10)
+        ms_path = cuda_ms(torch, resident_path, 10)
         ms_cut = cuda_ms(torch, lambda: tr.tile_energy_resident(
             *cargs, mode=mode), 10)
-        flops = ({"fp32": 2 * 6 * ncell * NOCC ** 3 * bigr["nvp"]}
-                 if mode == "f32" else
-                 {"bf16": 3 * 2 * 6 * ncell * NOCC ** 3 * bigr["nvp"]})
+        ms_w1 = ms_rk - ms_cut
+        nmma = 3 if mode == "split" else 1
+        flops = ({"fp32": w1_flops} if mode == "f32"
+                 else {"bf16": nmma * w1_flops})
         flops["fp32"] = flops.get("fp32", 0) + 2 * 6 * ncell * NOCC ** 4
         bnd = bound_ms(nbytes(rargs) + 8 * TILE ** 3, flops)
         res[mode] = dict(e=e_k, err=err, ms=ms_rk, plain_ms=ms_rp,
@@ -552,18 +584,29 @@ def main():
             e_fp64_plain_f32=repr(e_r64),
             rel_err_vs_fp64=f"{abs(e_k - e_r64) / abs(e_r64):.3e}",
             abs_err=f"{err:.3e}", rtol=RTOL_TILE_FP32,
-            kernel_ms=f"{ms_rk:.3f}", plain_ms=f"{ms_rp:.3f}",
-            path_ms=f"{ms_path:.3f}", kernel_ms_f16=f"{ms_cut:.3f}",
+            kernel_ms=f"{ms_rk:.4f}", plain_ms=f"{ms_rp:.3f}",
+            path_ms=f"{ms_path:.4f}", cut_f=kc,
+            kernel_ms_cut=f"{ms_cut:.4f}", w1_ms=f"{ms_w1:.4f}",
+            w1_tflops=f"{w1_flops / ms_w1 / 1e9:.1f}",
+            w1_mma_tflops=f"{nmma * w1_flops / ms_w1 / 1e9:.1f}",
+            t2_split_ms=f"{split_ms:.3f}",
+            stages=tr._lib().triples_resident_stages(NOCC, 4,
+                                                     tr.MODES[mode]),
             bound_ms=f"{bnd[0]:.3f}", bound_by=bnd[1])
         say(5, f"trace {mode} path", top=json.dumps(
-            trace_top(torch, lambda: resident_path(mode), 5)))
+            trace_top(torch, resident_path, 5)))
+        if mode != "f32":
+            hl = bigr["t2T_w1"]
+            say(5, f"t2 {mode} operand", gib=f"{nbytes(hl) / 2**30:.3f}",
+                t2T_fp32_gib=f"{nbytes(bigr['t2T']) / 2**30:.3f}")
+        del bigr, prep_r, out, rargs, cargs, resident_path
     ms_fpath = cuda_ms(torch, fused_path, 10)
     say(5, "bench tile fused path (W1 GEMMs + epilogue kernel)",
         path_ms=f"{ms_fpath:.3f}", epilogue_kernel_ms=f"{ms_k:.3f}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
     say(5, "trace fused path", top=json.dumps(
         trace_top(torch, fused_path, 5)))
-    del bigr, bigf, prep_r, prep_f, out, rargs, cargs, cut
+    del bigf, prep_f
 
     # (c) the pinned fp64 E(T) through the resident kernel
     tr.launch_count = 0
@@ -578,23 +621,29 @@ def main():
         kernel_launches=nl)
 
     # (d) the 64-tile probe through engine='resident', beside the fused
-    # probe (fused, resident f32, resident split, fused again)
-    e_f32, pms_f32, res_launches = probe("resident", tr)
-    e_split, pms_split, _ = probe("resident", tr, dot_precision="high")
+    # probe (fused, resident f32, split through engine='auto', bf16, fused
+    # again)
+    e_f32, pms_f32, f32_launches = probe("resident", tr)
+    e_split, pms_split, res_launches = probe("auto", tr, dot_precision="high")
+    e_bf16, pms_bf16, bf16_launches = probe("resident", tr,
+                                            dot_precision="default")
     e_fused2, probe_ms2, _ = probe("fused", tc)
     d_fused = abs(e_f32 - e_probe) / abs(e_probe)
     d_split = abs(e_split - e_f32) / abs(e_f32)
     if not (d_fused <= RTOL_TILE_FP32 and d_split <= RTOL_SPLIT
-            and res_launches > 0):
+            and min(f32_launches, res_launches, bf16_launches) > 0):
         raise RuntimeError(f"resident probe: f32 {e_f32!r}, split "
-                           f"{e_split!r}, fused {e_probe!r}, "
-                           f"{res_launches} launches")
+                           f"{e_split!r}, fused {e_probe!r}, launches "
+                           f"{f32_launches} {res_launches} {bf16_launches}")
     say(5, "(T) probe", tiles=NPROBE, launches=res_launches,
         ms_per_tile_f32=f"{pms_f32:.3f}", ms_per_tile_split=f"{pms_split:.3f}",
+        ms_per_tile_bf16=f"{pms_bf16:.3f}",
         ms_per_tile_fused=f"{probe_ms:.3f} {probe_ms2:.3f}",
-        e_f32=repr(e_f32), e_split=repr(e_split), e_fused=repr(e_probe),
+        e_f32=repr(e_f32), e_split=repr(e_split), e_bf16=repr(e_bf16),
+        e_fused=repr(e_probe),
         rel_f32_vs_fused=f"{d_fused:.3e}", rtol=RTOL_TILE_FP32,
         rel_split_vs_f32=f"{d_split:.3e}", rtol_split=RTOL_SPLIT,
+        rel_bf16_vs_f32=f"{abs(e_bf16 - e_f32) / abs(e_f32):.3e}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)),
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
@@ -755,7 +804,9 @@ def main():
         ("stream", probe_src, "tools/triples_probe_v6.py:154"),
         ("slab", "pyscf_mpcc_tpu_torch/ops/csrc/slab_relayout.cu",
          "tools/slab_loop_probe.py:39")]
-    rf = res["f32"]
+    # the resident row: mode split, the mode that engine='auto' runs on
+    # the resident kernel (dot_precision='high')
+    rf = res["split"]
     print(json.dumps({"kernels": [{
         "name": "triples_combine", "route": "cuda",
         "source": "pyscf_mpcc_tpu_torch/ops/csrc/triples_combine.cu",
@@ -763,6 +814,13 @@ def main():
         "launches": comb_launches, "max_abs_err": tile_err,
         "ms": ms_k, "plain_ms": ms_p, "bound_ms": comb_bound[0],
         "bound_by": comb_bound[1], "library_ms": None}, {
+        "name": "triples_combine_chunk", "route": "cuda",
+        "source": "pyscf_mpcc_tpu_torch/ops/csrc/triples_combine.cu",
+        "replaces": "pyscf_mpcc_tpu/ops/triples_combine.py:561",
+        "launches": c4_launches, "max_abs_err": chunk_err,
+        "ms": chunk_ms, "plain_ms": chunk_plain_ms,
+        "bound_ms": chunk_bound[0] / 4, "bound_by": chunk_bound[1],
+        "library_ms": None}, {
         "name": "triples_resident", "route": "cuda",
         "source": "pyscf_mpcc_tpu_torch/ops/csrc/triples_resident.cu",
         "replaces": "pyscf_mpcc_tpu/ops/triples_resident.py:238",

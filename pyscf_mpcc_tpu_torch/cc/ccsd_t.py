@@ -18,8 +18,10 @@ CUDA kernel of ops/triples_combine (its plain version for CPU tensors);
 'resident' runs the whole tile, W1 dots included, in the CUDA kernel of
 ops/triples_resident, so W never reaches device memory; 'xla' is the
 whole tile in plain torch (the port of the JAX package's XLA engine, the
-independent CPU oracle); 'auto' picks 'fused' for CUDA tensors and 'xla'
-for CPU tensors.
+independent CPU oracle).  'auto' picks 'xla' for CPU tensors and, for
+CUDA tensors, 'fused' at full precision and 'resident' for the bf16
+tiers (dot_precision 'high' or 'default'), whose W1 dots only the
+resident kernel runs on the tensor cores.
 """
 
 from __future__ import annotations
@@ -33,9 +35,9 @@ from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
 
 PERMS = tc.PERMS
 
-# dot_precision -> resident W1 mode.  The port's default (None) is full
-# fp32 dots, TF32 off; 'high' is the JAX package's bf16x3 ('split');
-# 'default' a single bf16 pass, opt-in.
+# dot_precision -> W1 mode of the resident and xla engines.  The port's
+# default (None) is full fp32 dots, TF32 off; 'high' is the JAX package's
+# bf16x3 ('split'); 'default' a single bf16 pass, opt-in.
 RESIDENT_MODES = {None: "f32", "highest": "f32", "high": "split",
                   "default": "bf16"}
 
@@ -48,9 +50,13 @@ def _tile_triples(nvt):
 
 
 def _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
-             engine):
+             engine, rmode="f32"):
     """Padded, relaid-out tensors shared by every tile (the JAX package's
-    ``big_arrays``) plus the static sizes."""
+    ``big_arrays``) plus the static sizes.  For the resident engine,
+    rmode is the W1 mode (RESIDENT_MODES): in 'split' and 'bf16' the W1
+    operand t2T_w1 is t2T split into bf16 once here, in the kernel's
+    tiled layout (tr.t2_operand), beside the fp32 t2T that the w2 and V
+    terms read."""
     nocc, nvir = t1.shape
     dev = t2.device
     f = eris.fock
@@ -97,6 +103,9 @@ def _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
                                [0, 1]).reshape(nvp, nvp, oo)
         big["oovv_T"] = padv(eris.ovov.to(dtype).permute(1, 3, 0, 2),
                              [0, 1]).reshape(nvp, nvp, oo)
+        if engine == "resident":
+            big["rmode"] = rmode
+            big["t2T_w1"] = tr.t2_operand(big["t2T"], rmode)
     else:
         # oovv_r[i, j, x, y] = (ix|jy)
         big["oovv_r"] = padv(eris.ovov.to(dtype).permute(0, 2, 1, 3),
@@ -139,8 +148,25 @@ def _weights(starts, T, dtype, device):
     return wgt.to(dtype)
 
 
-def make_tile_energy(big, mode="exclude_active"):
-    """The 'xla' engine: whole tile in plain torch; abc -> 0-dim fp64."""
+def _w1_einsum(ovb, t2z, w1mode):
+    """w1[x,y,z,i,(j,k)] = sum_f ov[x,y,i,f] t2T[z,f,(j,k)] in the W1 mode
+    (RESIDENT_MODES): bf16 hi/lo products summed in the working dtype."""
+    def dot(a, b):
+        return torch.einsum("xyif,zfm->xyzim", a.to(ovb.dtype),
+                            b.to(ovb.dtype))
+
+    if w1mode == "f32":
+        return dot(ovb, t2z)
+    (oh, ol), (th, tl) = tr.hilo(ovb), tr.hilo(t2z)
+    if w1mode == "bf16":
+        return dot(oh, th)
+    return dot(oh, th) + dot(oh, tl) + dot(ol, th)
+
+
+def make_tile_energy(big, mode="exclude_active", w1mode="f32"):
+    """The 'xla' engine: whole tile in plain torch; abc -> 0-dim fp64.
+    w1mode: the W1 dots' mode (RESIDENT_MODES), as in the resident
+    engine."""
     T, o, nvp = big["T"], big["o"], big["nvp"]
     t2T, vooo, oovv_r = big["t2T"], big["vooo"], big["oovv_r"]
     t1p, fvo_p, ev_p, eo = big["t1p"], big["fvo_p"], big["ev_p"], big["eo"]
@@ -158,7 +184,7 @@ def make_tile_energy(big, mode="exclude_active"):
         for p in PERMS:
             xi, yi, zi = p
             # w1[x,y,z,i,(j,k)] = sum_f ov[x,y,i,f] t2T[z,f,(j,k)]
-            w = torch.einsum("xyif,zfm->xyzim", ovb[(xi, yi)], t2T_s[zi])
+            w = _w1_einsum(ovb[(xi, yi)], t2T_s[zi], w1mode)
             w = w.reshape(T, T, T, o, o, o)
             # w2[x,y,z,i,j,k] = sum_m vooo[x,i,(j,m)] t2[k,m,z,y];
             # t2[k,m,z,y] = t2T[z,y,(m,k)]
@@ -261,12 +287,16 @@ def make_prep_fused(big):
 def make_prep_resident(big):
     """Per-tile prep for the resident kernel: operand slices only (the W
     dots run in the kernel), as the argument tuple of
-    tile_energy_resident (plus act3 when masked).  The t2 slices are views
-    of the persistent t2T; the ov blocks are DF products (or ovvv slices)
-    made here."""
+    tile_energy_resident in the W1 mode big['rmode'] (plus act3 when
+    masked).  The t2 slices are views of the persistent t2T_w1; the ov
+    blocks are DF products (or ovvv slices) made, and in 'split'/'bf16'
+    split, here."""
     T, o = big["T"], big["o"]
     oo = o * o
     t2T, vooo, oovv_T = big["t2T"], big["vooo"], big["oovv_T"]
+    rmode, t2w, nvp = big["rmode"], big["t2T_w1"], big["nvp"]
+    fpad = nvp if rmode == "f32" else -(-nvp // tr.MMA_KC[rmode]) \
+        * tr.MMA_KC[rmode]
     t1p, fvo_p, ev_p = big["t1p"], big["fvo_p"], big["ev_p"]
     act_vir = big.get("act_vir")
     dtype, dev = t2T.dtype, t2T.device
@@ -278,9 +308,21 @@ def make_prep_resident(big):
 
     def prep(abc):
         starts = tuple(int(r) * T for r in abc)
-        t2sl = [t2T[s:s + T] for s in starts]
-        ovbl = [_ov_block(big, starts[x], starts[y]).contiguous()
-                for (x, y) in tr.PAIRS6]
+        if rmode == "split":
+            t2sl = [(t2w[0][s:s + T], t2w[1][s:s + T]) for s in starts]
+        else:
+            t2sl = [t2w[s:s + T] for s in starts]
+        # the six ov blocks in one stack, f already padded for the split,
+        # so that it is split and tiled in a few launches
+        ov = torch.empty((6, T, T, o, fpad), dtype=dtype, device=dev)
+        ov[..., nvp:] = 0
+        for q, (x, y) in enumerate(tr.PAIRS6):
+            ov[q, ..., :nvp] = _ov_block(big, starts[x], starts[y])
+        ovw = tr.ov_operand(ov, rmode)
+        if rmode == "split":
+            ovbl = list(zip(ovw[0].unbind(0), ovw[1].unbind(0)))
+        else:
+            ovbl = list(ovw.unbind(0))
         vooo_t = torch.stack([vooo[s:s + T].reshape(T, oo, o)
                               for s in starts])
         t1_t = torch.stack([t1p[:, s:s + T].T for s in starts])
@@ -344,9 +386,10 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
     contributions whose six indices are all active, 'only_active' keeps
     only those.  chunk: tiles per kernel launch in the fused and resident
     engines (the kernels' grids take the tile index as a dimension).
-    dot_precision: the resident engine's W1 mode (RESIDENT_MODES: None or
-    'highest' full dots, 'high' bf16x3, 'default' one bf16 pass); the
-    other engines take None/'highest' only.
+    dot_precision: the W1 mode (RESIDENT_MODES: None or 'highest' full
+    dots, 'high' bf16x3, 'default' one bf16 pass) of the resident and xla
+    engines; 'fused' takes None/'highest' only (its W1 GEMMs are fp32
+    cuBLAS calls), so 'auto' on CUDA runs the bf16 tiers on 'resident'.
     tiles_per_call bounded the length of one compiled TPU program; the
     eager loop here has no such program and ignores it.  tile=0 lets
     lib/memory size the tile edge (CUDA, or with config.MAX_MEMORY set).
@@ -355,24 +398,35 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
     if mesh is not None:
         raise NotImplementedError(
             "the mesh-sharded (T) is ROADMAP A17 (multi-GPU), not ported")
+    if isinstance(dot_precision, str):
+        dot_precision = dot_precision.lower()
     if engine == "auto":
-        engine = "fused" if t2.device.type == "cuda" else "xla"
+        if t2.device.type != "cuda":
+            engine = "xla"
+        elif RESIDENT_MODES.get(dot_precision) in ("split", "bf16"):
+            engine = "resident"
+        else:
+            engine = "fused"
     if engine == "flat":
         raise NotImplementedError(
             "engine='flat' is a TPU lane-padding layout and is not ported")
     if engine not in ("fused", "resident", "xla"):
         raise ValueError(f"unknown (T) engine {engine!r}; use 'fused', "
                          "'resident', 'xla' or 'auto'")
-    if engine == "resident":
-        if isinstance(dot_precision, str):
-            dot_precision = dot_precision.lower()
-        if dot_precision not in RESIDENT_MODES:
-            raise ValueError(f"dot_precision={dot_precision!r}: the "
-                             "resident engine takes None, 'highest', "
-                             "'high' or 'default'")
-        rmode = RESIDENT_MODES[dot_precision]
-    else:
+    rmode = "f32"
+    if engine == "fused":
+        if dot_precision in ("high", "default"):
+            raise NotImplementedError(
+                f"dot_precision={dot_precision!r}: the fused engine's W1 "
+                "GEMMs run in full fp32 only; engine='resident' runs the "
+                "bf16 tiers on the tensor cores")
         tc._check_precision(dot_precision)
+    elif dot_precision not in RESIDENT_MODES:
+        raise ValueError(f"dot_precision={dot_precision!r}: the {engine} "
+                         "engine takes None, 'highest', 'high' or "
+                         "'default'")
+    else:
+        rmode = RESIDENT_MODES[dot_precision]
     nocc, nvir = t1.shape
     if dtype is None:
         dtype = t2.dtype
@@ -382,12 +436,12 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
         tile = _mem.plan_triples_tile(nocc, nvir, naux, dtype,
                                       device=t2.device)
     big = _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
-                   engine)
+                   engine, rmode)
     trips = _tile_triples(big["nvp"] // tile)
     ntrips = trips.shape[0]
     e_tiles = torch.empty(ntrips, dtype=torch.float64, device=t2.device)
     if engine == "xla":
-        tile_energy = make_tile_energy(big, mode)
+        tile_energy = make_tile_energy(big, mode, rmode)
         for n in range(ntrips):
             e_tiles[n] = tile_energy(trips[n])
         return 2.0 * float(e_tiles.sum())

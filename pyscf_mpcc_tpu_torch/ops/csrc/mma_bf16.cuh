@@ -1,5 +1,5 @@
-// bf16 tensor-core fragments shared by the kernels that run dots on
-// mma.sync (triples_resident.cu, triples_probe.cu).
+// bf16 tensor-core fragments for dots on mma.sync (the p3 probe,
+// triples_probe.cu).
 //
 // mma.sync m16n8k16, A row-major, B column-major, bf16 in, fp32
 // accumulate.  A 32-bit register holds two bf16 values, the lower k in the

@@ -1,0 +1,150 @@
+// Hopper warpgroup MMA (wgmma) on bf16 operands in shared memory, and the
+// bulk copies (TMA engine, mbarrier completion) that stage operands; used
+// by triples_resident.cu.
+//
+// Layout (PTX ISA "Shared Memory Matrix Layout", no swizzle): an operand
+// tile is made of core matrices of 8 rows of 16 bytes (8 bf16), each
+// stored as 128 contiguous bytes.  In a K-major tile (A here, [m][k] with
+// k contiguous) a core matrix holds 8 m-rows of 8 k; in an MN-major tile
+// (B here, [k][n] with n contiguous, read with the transpose flag) it
+// holds 8 k-rows of 8 n.  The descriptor's leading byte offset (LBO) is
+// the distance between core matrices adjacent along K, its stride byte
+// offset (SBO) the distance between core matrices adjacent along M or N.
+//
+// Accumulator of m64nNk16 (fp32), thread t of the warpgroup, warp w =
+// t / 32, lane = 4 g + q: d[4 j + 2 h + e] = C[16 w + g + 8 h][8 j + 2 q + e].
+//
+// Ordering: fence() before the first MMA that reads registers written by
+// other instructions; commit() after a batch; wait<N>() before the
+// accumulator is read or an operand tile is overwritten.  Shared memory
+// written by ordinary stores must be made visible to the MMA and the copy
+// engine (the async proxy) with fence_proxy_async() before the barrier
+// that publishes it; data of bulk copies is visible once their mbarrier
+// phase has completed.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wgmma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// matrix descriptor of a no-swizzle tile at shared address addr
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of r across this point (around
+// the asynchronous MMA, whose register operands it cannot see)
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d += A . B, A (64 x 16) K-major at desc a, B (16 x 128) MN-major at
+// desc b (transpose flag 1); bf16 in, fp32 accumulate (scale-d = 1)
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Bulk copies global -> shared on the TMA engine (cp.async.bulk), whose
+// completion is counted in bytes by an mbarrier: one thread calls
+// mbar_expect_tx with the bytes of a batch and issues its copies; every
+// thread that reads the data first waits on the barrier's phase.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// makes initialised barriers visible to the copy engine
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// arrive (the barrier counts one) and expect bytes more of copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  }
+}
+// bytes (a multiple of 16; both addresses 16-byte aligned) from src to dst
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+}  // namespace wgmma

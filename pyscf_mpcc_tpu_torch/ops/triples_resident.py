@@ -21,9 +21,16 @@ run in the working dtype):
              the dtype: the JAX package's bf16x3 mode
     'bf16'   hi.hi only
 
-Unlike the JAX function, 'split' and 'bf16' take the operands unsplit, in
-the working dtype: the split happens inside (the kernel forms hi and lo
-while it stages an operand), which saves two copies of each operand.
+As in the JAX function, 'split' takes the W1 operands (t2sl, ovbl) as
+(hi, lo) bf16 pairs split once outside the kernel, and 'bf16' takes the
+hi parts; 'f32' takes them dense in the working dtype.  The (T) prep
+splits the persistent t2 once per call (``t2_operand``) and each tile's
+ov blocks once (``ov_operand``).  In the bf16 modes the parts are also
+laid out in the order in which the kernel stages them (k-chunks of
+``MMA_KC`` of 8 x 8 tiles, rows and columns zero-padded to 8, f to the
+chunk), so that the kernel fills a stage with a few contiguous bulk
+copies; ``t2_dense`` and ``ov_dense`` undo that layout (the JAX
+function's).  The zero padding leaves the energy unchanged.
 """
 
 from __future__ import annotations
@@ -41,6 +48,10 @@ PAIRS6 = tuple((p[0], p[1]) for p in PERMS)
 _PAIR = {pr: i for i, pr in enumerate(PAIRS9)}
 
 MODES = {"f32": 0, "split": 1, "bf16": 2}
+# k depth of one staged chunk of the kernel in the bf16 modes
+# (MmaTile::KC in csrc/triples_resident.cu, checked when it is loaded), the
+# chunk of their tiled operands, to which f is zero-padded
+MMA_KC = {"split": 16, "bf16": 32}
 # dynamic shared memory a block may use, less 1 KB for the kernel's
 # static shared memory
 _SMEM_MAX = _SMEM_BLOCK - 1024
@@ -57,6 +68,68 @@ def hilo(x):
     return hi, lo
 
 
+def _pad(x, axis, n):
+    """x zero-padded along axis to length n."""
+    axis %= x.dim()
+    if x.shape[axis] == n:
+        return x
+    return torch.nn.functional.pad(
+        x, [0, 0] * (x.dim() - 1 - axis) + [0, n - x.shape[axis]])
+
+
+def _split(x, mode, tile):
+    hi, lo = hilo(x)
+    return (tile(hi), tile(lo)) if mode == "split" else tile(hi)
+
+
+def t2_operand(x, mode):
+    """t2 slices (S, F, N) in the form mode takes them: x for 'f32'; else
+    split ((hi, lo) for 'split', hi for 'bf16') and tiled,
+    (S, F'/kc, N'/8, kc/8, 8, 8) [s, c, ng, kg, kr, nn] =
+    x[s, kc c + 8 kg + kr, 8 ng + nn], kc = MMA_KC[mode], F and N
+    zero-padded to F' (a multiple of kc) and N' (of 8)."""
+    if mode == "f32":
+        return x
+    S, f, n = x.shape
+    kc, np8 = MMA_KC[mode], -(-n // 8)
+    fp = -(-f // kc) * kc
+    x = _pad(_pad(x, 1, fp), 2, 8 * np8)
+    return _split(x, mode, lambda h: h.reshape(
+        S, fp // kc, kc // 8, 8, np8, 8).permute(0, 1, 4, 2, 3, 5)
+        .contiguous())
+
+
+def ov_operand(x, mode):
+    """ov blocks (..., o, F) in the form mode takes them: x for 'f32';
+    else split and tiled, (..., F'/kc, o'/8, kc/8, 8, 8)
+    [..., c, mg, kg, r, kk] = x[..., 8 mg + r, kc c + 8 kg + kk], o and F
+    zero-padded to o' (a multiple of 8) and F'."""
+    if mode == "f32":
+        return x
+    *lead, o, f = x.shape
+    kc, op8, n = MMA_KC[mode], -(-o // 8), len(lead)
+    fp = -(-f // kc) * kc
+    x = _pad(_pad(x, -1, fp), -2, 8 * op8)
+    return _split(x, mode, lambda h: h.reshape(
+        *lead, op8, 8, fp // kc, kc // 8, 8).permute(
+        *range(n), n + 2, n, n + 3, n + 1, n + 4).contiguous())
+
+
+def t2_dense(x, n):
+    """A tiled t2 operand part as (S, F', n)."""
+    S, c, np8, kg = x.shape[:4]
+    return x.permute(0, 1, 3, 4, 2, 5).reshape(S, c * kg * 8, 8 * np8)[
+        ..., :n]
+
+
+def ov_dense(x, o):
+    """A tiled ov operand part as (..., o, F')."""
+    n = x.dim() - 5
+    c, op8, kg = x.shape[n:n + 3]
+    return x.permute(*range(n), n + 1, n + 3, n, n + 2, n + 4).reshape(
+        *x.shape[:n], 8 * op8, c * kg * 8)[..., :o, :]
+
+
 def _check(mode, act_mode, act3, actocc):
     if mode not in MODES:
         raise ValueError(f"unknown resident mode {mode!r}; use 'f32', "
@@ -71,18 +144,18 @@ def _check(mode, act_mode, act3, actocc):
 # plain version
 # --------------------------------------------------------------------------
 
-def _w1(ov, t2, mode):
-    """(Tx,Ty,o,F) . (Tz,F,oo) -> (Tx,Ty,o,Tz,oo) in the precision mode."""
+def _w1(ov, t2, mode, dtype, o):
+    """(Tx,Ty,o,F) . (Tz,F,oo) -> (Tx,Ty,o,Tz,oo) in dtype, from the W1
+    operands in the form of mode (ov_operand, t2_operand)."""
     def dot(a, b):
-        return torch.tensordot(a, b, dims=([3], [1]))
+        return torch.tensordot(a.to(dtype), b.to(dtype), dims=([3], [1]))
 
     if mode == "f32":
         return dot(ov, t2)
-    dt = ov.dtype
-    oh, ol = (x.to(dt) for x in hilo(ov))
-    th, tl = (x.to(dt) for x in hilo(t2))
     if mode == "bf16":
-        return dot(oh, th)
+        return dot(ov_dense(ov, o), t2_dense(t2, o * o))
+    oh, ol = (ov_dense(x, o) for x in ov)
+    th, tl = (t2_dense(x, o * o) for x in t2)
     return dot(oh, th) + dot(oh, tl) + dot(ol, th)
 
 
@@ -98,7 +171,8 @@ def tile_energy_resident_reference(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t,
     for q, p in enumerate(PERMS):
         xi, yi, zi = p
         # (x, y, i, z, j, k) -> (x, y, z, i, j, k)
-        w1 = _w1(ovbl[q], t2sl[zi], mode).reshape(T, T, o, T, o, o)
+        w1 = _w1(ovbl[q], t2sl[zi], mode, vooo_t.dtype, o).reshape(
+            T, T, o, T, o, o)
         w1 = w1.permute(0, 1, 3, 2, 4, 5)
         # w2[x,y,z,i,j,k] = sum_m (ix|jm) t2[k,m,z,y]
         w2 = torch.einsum("xijm,zymk->xyzijk", vooo[xi], t2p[_PAIR[zi, yi]])
@@ -157,7 +231,24 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.triples_resident_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.triples_resident_smem_bytes.restype = ctypes.c_longlong
+    lib.triples_resident_stages.argtypes = [ctypes.c_int] * 3
+    lib.triples_resident_stages.restype = ctypes.c_int
+    lib.triples_resident_k_chunk.argtypes = [ctypes.c_int]
+    lib.triples_resident_k_chunk.restype = ctypes.c_int
+    for mode, kc in MMA_KC.items():
+        if lib.triples_resident_k_chunk(MODES[mode]) != kc:
+            raise RuntimeError(f"triples_resident.cu stages k-chunks of "
+                               f"{lib.triples_resident_k_chunk(MODES[mode])}"
+                               f" in mode {mode!r}; MMA_KC says {kc}")
     return lib
+
+
+def _max_nocc(lib, itemsize, mode):
+    """The largest nocc whose W and staging fit the shared memory."""
+    o = 1
+    while lib.triples_resident_smem_bytes(o + 1, itemsize, mode) <= _SMEM_MAX:
+        o += 1
+    return o
 
 
 def _launch(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t, eijk, eabc3, wgt3,
@@ -177,24 +268,48 @@ def _launch(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t, eijk, eabc3, wgt3,
             "products with fp32 accumulation); use mode 'f32' for float64")
     if len(t2sl) != K or len(ovbl) != K:
         raise ValueError(f"t2sl and ovbl need one entry per tile ({K})")
-    F = ovbl[0][0].shape[-1]
-    expect = []
+    # the W1 operands: (hi, lo) bf16 pairs in mode split, bf16 in mode
+    # bf16, the working dtype in mode f32
+    nhalf = 2 if mode == "split" else 1
+    opdt = dtype if mode == "f32" else torch.bfloat16
+
+    def halves(x):
+        if mode != "split":
+            return (x,)
+        if not (isinstance(x, (tuple, list)) and len(x) == 2):
+            raise ValueError("mode 'split' takes the W1 operands as "
+                             "(hi, lo) pairs")
+        return tuple(x)
+
     for k in range(K):
         if len(t2sl[k]) != 3 or len(ovbl[k]) != 6:
             raise ValueError("each tile needs 3 t2 slices and 6 ov blocks")
-        expect += [(x, (T, F, o * o)) for x in t2sl[k]]
-        expect += [(x, (T, T, o, F)) for x in ovbl[k]]
-    expect += [(vooo_t, (K, 3, T, o * o, o)), (t2p, (K, 6, T, T, o, o)),
-               (oovv_t, (K, 6, T, T, o, o)), (t1_t, (K, 3, T, o)),
-               (fvo_t, (K, 3, T, o)), (eijk, (o, o, o)),
-               (eabc3, (K, T, T, T)), (wgt3, (K, T, T, T))]
+    ops = [[halves(x) for x in list(t2sl[k]) + list(ovbl[k])]
+           for k in range(K)]
+    if mode == "f32":
+        F = ops[0][3][0].shape[-1]
+        shapes = ((T, F, o * o), (T, T, o, F))
+    else:     # the tiled layouts of t2_operand and ov_operand
+        kc = MMA_KC[mode]
+        F = ops[0][3][0].shape[2] * kc
+        shapes = ((T, F // kc, -(-o * o // 8), kc // 8, 8, 8),
+                  (T, T, F // kc, -(-o // 8), kc // 8, 8, 8))
+    expect = []
+    for k in range(K):
+        for n, hl in enumerate(ops[k]):
+            expect += [(x, shapes[n >= 3], opdt) for x in hl]
+    expect += [(x, shape, dtype) for x, shape in (
+        (vooo_t, (K, 3, T, o * o, o)), (t2p, (K, 6, T, T, o, o)),
+        (oovv_t, (K, 6, T, T, o, o)), (t1_t, (K, 3, T, o)),
+        (fvo_t, (K, 3, T, o)), (eijk, (o, o, o)),
+        (eabc3, (K, T, T, T)), (wgt3, (K, T, T, T)))]
     if act_mode is not None:
-        expect += [(act3, (K, T, T, T)), (actocc, (o, o, o))]
-    for x, shape in expect:
+        expect += [(act3, (K, T, T, T), dtype), (actocc, (o, o, o), dtype)]
+    for x, shape, dt in expect:
         if tuple(x.shape) != shape:
             raise ValueError(f"expected shape {shape}, got {tuple(x.shape)}")
-        if x.dtype != dtype:
-            raise TypeError(f"mixed dtypes {x.dtype} and {dtype}")
+        if x.dtype != dt:
+            raise TypeError(f"expected {dt} in mode {mode!r}, got {x.dtype}")
         if x.device != dev:
             raise ValueError(f"tensors on {x.device} and {dev}")
         if not x.is_contiguous():
@@ -202,15 +317,18 @@ def _launch(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t, eijk, eabc3, wgt3,
     lib = _lib()
     need = lib.triples_resident_smem_bytes(o, dtype.itemsize, MODES[mode])
     if need > _SMEM_MAX:
+        top = _max_nocc(lib, dtype.itemsize, MODES[mode])
         raise NotImplementedError(
             f"nocc={o} in {dtype}, mode {mode!r}: the cell's W and the "
             f"GEMM staging need {need} bytes of shared memory, over the "
-            f"{_SMEM_MAX} a block may use (float64 runs up to nocc 28, "
-            "float32 up to 36); use the fused engine")
-    # device addresses of each tile's t2 slices and ov blocks: the slices
-    # are read in place (views of the persistent t2 array), not copied
-    ptrs = torch.tensor([[x.data_ptr() for x in t2sl[k]]
-                         + [x.data_ptr() for x in ovbl[k]]
+            f"{_SMEM_MAX} a block may use ({dtype} in mode {mode!r} runs "
+            f"up to nocc {top}); use the fused engine")
+    # device addresses of each tile's W1 operands, (K, 18): the hi (or
+    # only) parts of the 3 t2 slices and 6 ov blocks, then the lo parts
+    # (0 unless split).  The slices are read in place (views of the
+    # persistent t2 array), not copied.
+    ptrs = torch.tensor([[hl[h].data_ptr() if h < nhalf else 0
+                          for h in range(2) for hl in ops[k]]
                          for k in range(K)], dtype=torch.int64, device=dev)
     out = torch.empty((K, T, T, T), dtype=torch.float64, device=dev)
     fn = (lib.triples_resident_f32 if dtype == torch.float32
@@ -256,8 +374,12 @@ def tile_energy_resident(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t,
     """Tile energy (0-dim fp64) with the W dots inside the kernel.
 
     t2sl:   3 per-role t2 slices (T, F, o*o), [z, f, (j,k)] = t2[k,j,z,f]
-            (views of the persistent t2T: the kernel reads them in place)
+            (views of the persistent t2T or its split: the kernel reads
+            them in place)
     ovbl:   the 6 ordered-pair (ix|fy) blocks (PAIRS6 order), (T, T, o, F)
+            t2sl and ovbl in the form of mode (t2_operand, ov_operand):
+            tiled (hi, lo) bf16 pairs for 'split', tiled bf16 for 'bf16',
+            dense in the dtype for 'f32'; F may be zero-padded
     vooo_t: (3, T, o*o, o) [(i,j), m] blocks
     t2p/oovv_t: (6, T, T, o, o) stacks in PAIRS9 order
     t1_t/fvo_t: (3, T, o) role-major rows
@@ -265,7 +387,7 @@ def tile_energy_resident(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t,
     wgt3: (T, T, T) degeneracy weights (zero on the padded/invalid
           region); act3: (T, T, T) virtual-active product, actocc:
           (o, o, o) occupied-active product.
-    mode: 'f32', 'split' or 'bf16' (module docstring); operands unsplit.
+    mode: 'f32', 'split' or 'bf16' (module docstring).
     """
     return tile_energy_resident_chunk(
         [t2sl], [ovbl], vooo_t[None], t2p[None], oovv_t[None], t1_t[None],

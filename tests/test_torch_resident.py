@@ -2,11 +2,14 @@
 engine='resident') against the JAX package.
 
 - The plain version tile_energy_resident_reference against the JAX Pallas
-  kernel tile_energy_resident(interpret=True), on identical inputs (the
-  port's resident prep, handed to both as numpy; JAX gets the bf16
-  (hi, lo) split of the operands in mode 'split' and the hi part in mode
-  'bf16', the port the operands unsplit), for the three modes and the
-  three act modes.
+  kernel tile_energy_resident(interpret=True), on identical inputs: the
+  port's resident prep in each W1 mode, handed to both (as numpy to JAX),
+  with the W1 operands split once into bf16 (hi, lo) pairs in mode
+  'split' and hi parts in mode 'bf16', their f axis zero-padded to the
+  kernel's k-chunk; for the three modes and the three act modes, one tile
+  a call and four tiles a call.
+- The prep's bf16 split against the JAX package's hilo (bitwise), and the
+  zero padding of the f axis against no padding.
 - The port's ccsd_t.kernel(engine='resident') against the JAX
   ccsd_t.kernel(engine='resident', dot_precision=...) on incore and DF
   problems, the tile=4/nvir=7 padding case, vfac=2 and the act masks;
@@ -62,50 +65,77 @@ def _np(x):
     return jnp.asarray(convert.to_numpy(x))
 
 
-def _jax_operand(x, mode):
-    """The JAX kernel's form of an unsplit port operand."""
-    x = _np(x)
-    if mode == "split":
-        return jtr.hilo(x)
-    return x.astype(jnp.bfloat16) if mode == "bf16" else x
+def _bf16(x):
+    """A bf16 tensor as a JAX bf16 array (exact through fp64)."""
+    return jnp.asarray(x.double().numpy()).astype(jnp.bfloat16)
+
+
+def _jax_operand(x, dense):
+    """The JAX kernel's form of a port W1 operand: the same values, in the
+    dense layout (dense undoes the kernel's tiling)."""
+    if isinstance(x, tuple):
+        return tuple(_bf16(dense(h)) for h in x)
+    return _bf16(dense(x)) if x.dtype == torch.bfloat16 else _np(x)
+
+
+def _resident_prep(mode, act, tiles=4, name="df"):
+    """The port's resident prep of the first tiles of a problem at tile=3
+    in W1 mode, eijk and actocc."""
+    kw = ACT if act else dict(act_hole=None, act_particle=None)
+    big = ccsd_t._prepare(*_port(name), 3, torch.float64, kw["act_hole"],
+                          kw["act_particle"], 1.0, "resident", mode)
+    prep = ccsd_t.make_prep_resident(big)
+    eijk, actocc = ccsd_t.fused_shared(big)
+    outs = [prep(abc) for abc in ccsd_t._tile_triples(big["nvp"] // 3)
+            [:tiles]]
+    return outs, eijk, actocc
 
 
 @pytest.fixture(scope="module")
 def op_cases():
-    """Per (mode, act): the port's resident prep of tiles 0-2 of the DF
+    """Per (mode, act): the port's resident prep of tiles 0-3 of the DF
     problem at tile=3 and the JAX interpret-mode kernel's energies."""
-    t1, t2, er = _port("df")
     out = {}
     for act in ACT_MODES:
-        kw = ACT if act else dict(act_hole=None, act_particle=None)
-        big = ccsd_t._prepare(t1, t2, er, 3, torch.float64, kw["act_hole"],
-                              kw["act_particle"], 1.0, "resident")
-        prep = ccsd_t.make_prep_resident(big)
-        eijk, actocc = ccsd_t.fused_shared(big)
-        outs = [prep(abc) for abc in ccsd_t._tile_triples(big["nvp"] // 3)
-                [:3]]
         for mode in PRECISIONS.values():
+            outs, eijk, actocc = _resident_prep(mode, act)
             # one jitted wrapper per mode and act mode: the interpret-mode
             # kernel is traced once per shape instead of once per call
             fn = jax.jit(partial(jtr.tile_energy_resident, interpret=True,
                                  act_mode=act, mode=mode))
             refs = []
+            no = eijk.shape[0]
             for o in outs:
                 akw = dict(act3=_np(o[9]), actocc=_np(actocc)) if act else {}
                 refs.append(float(fn(
-                    [_jax_operand(x, mode) for x in o[0]],
-                    [_jax_operand(x, mode) for x in o[1]],
+                    [_jax_operand(x, lambda h: tr.t2_dense(h, no * no))
+                     for x in o[0]],
+                    [_jax_operand(x, lambda h: tr.ov_dense(h, no))
+                     for x in o[1]],
                     *[_np(x) for x in o[2:7]], _np(eijk), _np(o[7]),
                     _np(o[8]), **akw)))
             out[(mode, act)] = (outs, eijk, actocc, refs)
     return out
 
 
+@pytest.mark.parametrize("chunk", [1, 4])
 @pytest.mark.parametrize("act", ACT_MODES)
 @pytest.mark.parametrize("mode", list(PRECISIONS.values()))
-def test_reference_matches_pallas_interpret(op_cases, mode, act):
+def test_reference_matches_pallas_interpret(op_cases, mode, act, chunk):
     outs, eijk, actocc, refs = op_cases[(mode, act)]
     assert max(abs(e) for e in refs) > 1e-8        # non-degenerate tiles
+    if mode == "split":     # tiled bf16 pairs
+        assert all(isinstance(x, tuple) and x[0].dtype == torch.bfloat16
+                   and x[0].dim() == 7 for x in outs[0][1])
+    if chunk == 4:
+        st = ccsd_t.stack_prep_resident(outs)
+        kw = dict(act3=st[9], actocc=actocc, act_mode=act) if act else {}
+        e = tr.tile_energy_resident_chunk(*st[:7], eijk, *st[7:9],
+                                          mode=mode, **kw)
+        assert e.shape == (4,) and e.dtype == torch.float64
+        np.testing.assert_allclose(convert.to_numpy(e), refs, rtol=RTOL,
+                                   atol=ATOL)
+        return
     for o, ref in zip(outs, refs):
         kw = dict(act3=o[9], actocc=actocc, act_mode=act) if act else {}
         e = tr.tile_energy_resident(*o[:7], eijk, *o[7:9], mode=mode, **kw)
@@ -132,6 +162,58 @@ def test_hilo_matches_jax():
         assert a.dtype == torch.bfloat16
         np.testing.assert_array_equal(a.double().numpy(),
                                       np.asarray(b.astype(jnp.float64)))
+
+
+def _assert_bitwise(a, b):
+    assert a.dtype == torch.bfloat16
+    np.testing.assert_array_equal(a.view(torch.int16).numpy(),
+                                  np.asarray(b).view(np.int16))
+
+
+@pytest.mark.parametrize("name", ["ovvv", "df"])
+def test_prep_split_matches_jax_hilo(name):
+    """The persistent t2 split and each tile's ov-block split of the
+    resident prep equal the JAX hilo of the zero-padded fp64 arrays."""
+    t1, t2, er = _port(name)
+    big = ccsd_t._prepare(t1, t2, er, 3, torch.float64, None, None, 1.0,
+                          "resident", "split")
+    nvp, o = big["nvp"], big["o"]
+    fp = -(-nvp // tr.MMA_KC["split"]) * tr.MMA_KC["split"]
+    t2T = np.zeros((nvp, fp, o * o))
+    t2T[:, :nvp] = big["t2T"].numpy()
+    for a, b in zip(big["t2T_w1"], jtr.hilo(jnp.asarray(t2T))):
+        _assert_bitwise(tr.t2_dense(a, o * o), b)
+    abc = ccsd_t._tile_triples(nvp // 3)[5]
+    ovbl = ccsd_t.make_prep_resident(big)(abc)[1]
+    starts = [int(r) * 3 for r in abc]
+    for (x, y), pair in zip(tr.PAIRS6, ovbl):
+        ov = ccsd_t._ov_block(big, starts[x], starts[y]).numpy()
+        ovp = np.zeros(ov.shape[:3] + (fp,))
+        ovp[..., :nvp] = ov
+        for a, b in zip(pair, jtr.hilo(jnp.asarray(ovp))):
+            _assert_bitwise(tr.ov_dense(a, o), b)
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+def test_zero_padded_f_leaves_energy(mode):
+    """The resident plain version on the prep's operands (f zero-padded to
+    the k-chunk) gives the tile energy of the xla engine, which splits the
+    unpadded operands, to 1e-12."""
+    args = _port("df")
+    big_r = ccsd_t._prepare(*args, 3, torch.float64, None, None, 1.0,
+                            "resident", mode)
+    big_x = ccsd_t._prepare(*args, 3, torch.float64, None, None, 1.0, "xla")
+    assert big_r["nvp"] % tr.MMA_KC[mode]       # the padding is not empty
+    prep = ccsd_t.make_prep_resident(big_r)
+    eijk = ccsd_t.fused_shared(big_r)[0]
+    tile_x = ccsd_t.make_tile_energy(big_x, w1mode=mode)
+    for abc in ccsd_t._tile_triples(big_r["nvp"] // 3)[:4]:
+        o = prep(abc)
+        e_pad = float(tr.tile_energy_resident_reference(
+            *o[:7], eijk, *o[7:9], mode=mode))
+        e_x = float(tile_x(abc))
+        assert abs(e_x) > 1e-8
+        np.testing.assert_allclose(e_pad, e_x, rtol=1e-12, atol=0)
 
 
 # (problem, tile, precision, act mode, vfac)

@@ -9,6 +9,9 @@ against the JAX package.
   ccsd_t.kernel(engine='xla') over tiles 3, 5 and 8.
 - The pinned E(T) of the distorted H2O/cc-pVDZ geometry, through the
   'xla', 'fused' and 'resident' engines.
+- dot_precision 'high' (bf16x3) and 'default' (bf16) off the resident
+  engine: the 'xla' engine against the resident engine's plain version,
+  and 'high' against the JAX 'xla' engine at full precision.
 
 fp64 on both sides; tolerance rtol 1e-10 / atol 1e-13 (summation order).
 """
@@ -186,11 +189,36 @@ def test_kernel_active_mask_matches_jax_xla(jax_energies, name, mode,
 def test_unported_engines_raise():
     args = _port("df")
     for kw in (dict(engine="flat"), dict(mesh=object()),
-               dict(dot_precision="high")):
+               dict(engine="fused", dot_precision="high")):
         with pytest.raises(NotImplementedError):
             ccsd_t.kernel(*args, tile=3, **kw)
+    with pytest.raises(NotImplementedError, match="resident"):
+        ccsd_t.kernel(*args, tile=3, engine="fused", dot_precision="default")
     with pytest.raises(ValueError):
         ccsd_t.kernel(*args, tile=3, engine="fused4")
+    with pytest.raises(ValueError):
+        ccsd_t.kernel(*args, tile=3, engine="xla", dot_precision="tf32")
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_bf16_tiers_off_the_resident_engine(jax_energies, prec):
+    """'xla' (the default engine on the CPU) runs the W1 dots of the bf16
+    tiers as the resident engine does (bf16 hi/lo products summed in the
+    working dtype), so both plain versions agree to summation order.  The
+    JAX package cannot give a bf16x3 oracle on the CPU: XLA:CPU ignores
+    the dot precision setting and computes its 'high' dots at full
+    precision.  So 'high' is held to the JAX 'xla' engine at full
+    precision within 5e-4, the JAX package's own bound for the mode
+    (tests/test_triples_fused.py:145)."""
+    args = _port("df")
+    e_x = ccsd_t.kernel(*args, tile=3, dot_precision=prec)
+    e_r = ccsd_t.kernel(*args, tile=3, engine="resident", dot_precision=prec)
+    e_full = ccsd_t.kernel(*args, tile=3, engine="xla")
+    np.testing.assert_allclose(e_x, e_r, rtol=1e-10, atol=0)
+    assert e_x != e_full                  # the bf16 rounding took effect
+    if prec == "high":
+        np.testing.assert_allclose(e_x, jax_energies[("df", 3, None)],
+                                   rtol=5e-4, atol=0)
 
 
 def test_pinned_e_t():
