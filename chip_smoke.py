@@ -11,8 +11,10 @@ each, started together), then runs:
   0. environment: versions, card, TF32 flags (asserted off), kernel builds
      and their register reports;
   1. the (T) epilogue kernel (triples_combine) against its plain PyTorch
-     version on the card: random small problems in fp64, and one tile at
-     the (H2O)8 shape in fp32, with timings;
+     version on the card: random small problems in fp64 (staged and
+     unstaged forms), and one tile at the (H2O)8 shape in fp32, with
+     timings and the split of a cell's time by phase (the kernel's
+     profile form);
   2. pinned H2O/cc-pVDZ energies in fp64 on the card (incore integrals):
      E(CCSD) and E(T), the latter through the CUDA kernel;
   3. the DF main path through the user entry points,
@@ -236,16 +238,18 @@ def main():
                 torch.testing.assert_close(e_k, e_p, rtol=RTOL_FP64,
                                            atol=1e-14)
                 nchk += 1
-    # fp64 at nocc=30 runs the kernel's unstaged form (W exceeds smem)
-    t1, t2, er = testing.triples_tensors(
-        *testing.random_triples_problem(30, 4, 9), dev, f64)
-    big = ccsd_t._prepare(t1, t2, er, 2, f64, None, None, 1.0, "fused")
-    out = ccsd_t.make_prep_fused(big)((1, 1, 0))
-    args = (*out[:8], ccsd_t.fused_shared(big)[0], *out[8:10])
-    torch.testing.assert_close(tc.tile_energy_fused(*args),
-                               tc.tile_energy_fused_reference(*args),
-                               rtol=RTOL_FP64, atol=1e-14)
-    nchk += 1
+    # fp64 at nocc=28, the top of the staged form (V-term inputs read from
+    # device memory), and at 30, the unstaged form (W exceeds smem)
+    for nocc in (28, 30):
+        t1, t2, er = testing.triples_tensors(
+            *testing.random_triples_problem(nocc, 4, 9), dev, f64)
+        big = ccsd_t._prepare(t1, t2, er, 2, f64, None, None, 1.0, "fused")
+        out = ccsd_t.make_prep_fused(big)((1, 1, 0))
+        args = (*out[:8], ccsd_t.fused_shared(big)[0], *out[8:10])
+        torch.testing.assert_close(tc.tile_energy_fused(*args),
+                                   tc.tile_energy_fused_reference(*args),
+                                   rtol=RTOL_FP64, atol=1e-14)
+        nchk += 1
     say(1, "random problems fp64 ok", cases=nchk, rtol=RTOL_FP64)
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -280,7 +284,34 @@ def main():
         abs_err=f"{tile_err:.3e}", rtol=RTOL_TILE_FP32,
         kernel_ms=f"{ms_k:.3f}", plain_ms=f"{ms_p:.3f}",
         bound_ms=f"{comb_bound[0]:.3f}", bound_by=comb_bound[1],
-        launches=tc.launch_count - n0)
+        launches=tc.launch_count - n0,
+        share_of_bound=f"{comb_bound[0] / ms_k:.3f}")
+    # where a cell's time goes: the kernel's profile form stamps the SM
+    # clock at each phase boundary of every cell (a barrier before each
+    # stamp); shares of the summed clocks of the cells of nonzero weight.
+    # The same for the kernel's other choices (VARIANTS: the w2 on the
+    # other of DMMA and FFMA, the W build by the threads' own loads), each
+    # with the profile form's time per tile
+    splits = {}
+    for vname, var in [("kernel", 0)] + sorted(tc.VARIANTS.items()):
+        e_prof, cyc = tc.tile_energy_fused_profile(*args, variant=var)
+        if not abs(e_prof.item() - e_k) <= RTOL_TILE_FP32 * abs(e_p):
+            raise RuntimeError(f"profile form {vname}: {e_prof.item()!r} "
+                               f"vs kernel {e_k!r}")
+        ms_v = cuda_ms(torch, lambda: tc.tile_energy_fused_profile(
+            *args, variant=var), 10)
+        tot = cyc[..., -1].sum().item()
+        shares = {name: cyc[..., n].sum().item() / tot
+                  for n, name in enumerate(tc.PHASES)}
+        busy = cyc[..., -1][cyc[..., -1] > 0].double()
+        splits[vname] = dict(ms=ms_v, shares=shares)
+        say(1, f"bench tile phase split {vname}", profile_ms=f"{ms_v:.4f}",
+            shares=json.dumps({k: round(v, 4) for k, v in shares.items()}),
+            ms_by_phase=json.dumps({k: round(v * ms_v, 4)
+                                    for k, v in shares.items()}),
+            cells=busy.numel(), clocks_per_cell_mean=f"{busy.mean():.0f}",
+            clocks_per_cell_max=f"{busy.max():.0f}",
+            abs_err=f"{abs(e_prof.item() - e_p):.3e}")
     del args, out
 
     # ---- phase 2: pinned fp64 energies on the card -----------------------

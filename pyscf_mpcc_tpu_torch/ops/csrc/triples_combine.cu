@@ -15,38 +15,55 @@
 // arithmetic).
 //
 // What bounds it on this card: reading the six w1 streams, 6 T^3 o^3
-// values per tile (403 MB in fp32 at the bench shape o=32, T=8), and the
-// in-kernel w2 dots, 6 o^4 multiply-adds per cell (3.2e9 per tile).  The
-// design keeps W and V out of device memory: one block per (tile, a, b, c)
-// cell builds the cell's W (o^3 values) in shared memory.  The w1 streams
-// are read in canonical order, and every W_PLAN layout has canonical k as
-// its minor dimension, so a warp reads consecutive addresses.  Each w2 dot
-// is a small GEMM, (o^2 x o) vooo rows times a staged o x o t2 block, in
-// which the lanes of a warp share one vooo row (one broadcast load per
-// multiply-add) and scatter into W at permuted, bank-padded positions.
-// The energy then needs V only at the six permutations of (i,j,k), and
-// e_ijk and the occupied mask are symmetric under them, so one thread owns
-// one occupied orbit {sigma(i,j,k)}, i >= j >= k, and adds the V term to
-// its six W values in registers.  Each block writes one partial energy: no
-// atomics, so the sum is deterministic; the host wrapper adds the partials
-// in fp64.  The w2 dots and the orbit phase are shared with the resident
-// kernel (triples_epilogue.cuh).
+// values per tile (403 MB in fp32 at the bench shape o=32, T=8, 0.12 ms at
+// 3.35 TB/s), then the in-kernel w2 dots, 6 o^4 multiply-adds per cell
+// (3.2e9 per tile, 0.10 ms at the 67 TFLOP/s of FFMA or of DMMA).  The design keeps W and V out of
+// device memory: one block per (tile, a, b, c) cell builds the cell's W
+// (o^3 values) in shared memory, and the cell's share of every w1 stream
+// is contiguous: o planes of o^2 values of an ov_first stream (one per
+// source i'), one o^3 block of a t2_first stream, and the canonical k
+// index is minor in every W_PLAN layout.  So each thread sums the six
+// streams for 4 consecutive k (fp32; 2 in fp64) with one 16-byte load
+// each, a warp's loads covering contiguous runs, and stores W once: no
+// barrier inside, many loads in flight.  (On the card this read the
+// streams about twice as fast as a ring of stages filled by bulk copies on
+// the TMA engine; the profile form still runs that ring for comparison.)
+// The w2 dots (GEMMs on the fp64 tensor cores) and the orbit phase (one
+// thread per occupied orbit from a host-built table, its V-term inputs
+// staged in shared memory where they fit) are the device code of
+// triples_epilogue.cuh, shared with the resident kernel.  Each block
+// writes one partial energy: no atomics, so the sum is deterministic; the
+// host wrapper adds the partials in fp64.
 //
-// When the cell's W does not fit in shared memory (fp64 beyond o = 28,
-// fp32 beyond o = 36) the same kernel runs unstaged: each orbit thread
-// computes its six W values itself, reading w1 and vooo directly, and the
-// orbits of a cell may be split over several blocks.
+// Forms by nocc (the scratch beside W has at least 6 o^2 values; see
+// triples_combine_v_staged):
+//   staged, V-term inputs in shared memory   fp32 up to o = 34, fp64 26
+//   staged, V-term inputs from device memory fp32 35-36, fp64 27-28
+//   unstaged    beyond: W does not fit in shared memory; each orbit thread
+//       computes its six W values itself, reading w1 and vooo directly
+//       against the six t2 blocks in shared memory, and the orbits of a
+//       cell may be split over several blocks.
+// Where o is not a multiple of the 16-byte vector, the W build loads one
+// value at a time.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "triples_epilogue.cuh"
 
 namespace {
 
 using triples::CellPtrs;
 using triples::perm_of;
+using triples::slot_stride;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = triples::kEpiThreads;
+constexpr int kRingMax = 6;                 // W-build ring stages, at most
+constexpr long long kStageTarget = 16384;   // bytes of one ring stage
+// dynamic shared memory a block may use: the opt-in cap of 232,448 bytes
+// less 1 KB for the static shared memory
+constexpr long long kSmemDynMax = 232448 - 1024;
 
 template <typename T>
 struct Args {
@@ -58,6 +75,7 @@ struct Args {
   const T* t1;       // (K,3,T,o)       [r,z,k] = t1[k,z]
   const T* fvo;      // (K,3,T,o)       [r,z,k] = fvo[z,k]
   const T* eijk;     // (o,o,o)
+  const int* orbits; // (norb,) occupied orbits r0 | r1 << 8 | r2 << 16
   const int* gabc;   // (K,3,T) global virtual indices
   const T* evt;      // (K,3,T) virtual orbital energies
   const T* actv;     // (K,3,T) active-virtual flags, or null
@@ -66,19 +84,181 @@ struct Args {
   int nt;            // tile edge T
   int o;             // occupied count
   int nsplit;        // blocks per cell (1 when staged)
+  long long scratch; // shared-memory bytes beside W (staged form)
   double* out;       // (K,T,T,T,nsplit) partial energies
+  long long* prof;   // (K,T,T,T,kProfSlots) phase clocks (profile form)
+  int variant;       // profile form: enum Variant bits, else 0
 };
 
-// shared-memory elements of the staged kernel: padded W, six t2 blocks
-__host__ __device__ __forceinline__ long long staged_elems(int o) {
-  return triples::w_elems(o) + 6LL * o * o;
+// variants the profile form can time against the kernel's own choices:
+// the other w2 form (triples::kW2Dmma); the W build by bulk copies into a
+// ring of 16 KB stages, or of 32 KB stages; the w2 fragments of vooo
+// staged by bulk copies instead of read from device memory
+enum Variant { kVarW2 = 1, kVarWRing = 2, kVarBigStages = 4,
+               kVarW2Staged = 8 };
+
+// scratch beside W in the staged form: at least 6 o^2 values and the
+// smallest w2 staging; as much as the w2 buffers and the V-term staging
+// want where W leaves room
+__host__ __device__ inline long long scratch_bytes(int o, int itemsize) {
+  const long long chunk = (long long)o * o * itemsize;
+  const triples::W2Plan small = triples::w2_plan(o, itemsize, 0);
+  const long long w2min = small.b_bytes + 64LL * small.kd * itemsize;
+  const long long floor = 6 * chunk > w2min ? 6 * chunk : w2min;
+  long long want = triples::w2_bytes_wanted(o, itemsize);
+  const long long v = triples::vstage_elems(o) * itemsize;
+  want = want > v ? want : v;
+  const long long cap = kSmemDynMax - triples::w_bytes(o, itemsize);
+  want = want < cap ? want : cap;
+  return ((want > floor ? want : floor) + 15) / 16 * 16;
 }
 
-template <typename T, bool kStaged>
+// dynamic shared memory of the staged form (over kSmemDynMax: unstaged)
+__host__ __device__ inline long long staged_bytes(int o, int itemsize) {
+  return triples::w_bytes(o, itemsize) + scratch_bytes(o, itemsize);
+}
+
+// Profile form: thread 0 adds the SM clocks of each phase of its cell to
+// prof[cell][phase] (a barrier first, so the phase has ended in every
+// warp), and the cell's total to the last slot.
+enum Phase { kSetup, kWBuild, kT2Stage, kW2, kVStage, kOrbit, kSum,
+             kProfSlots = 8 };
+
+template <bool kProf>
+struct Stamp {
+  long long* p;
+  long long t0, t;
+  __device__ explicit Stamp(long long* prof) : p(prof), t0(0), t(0) {
+    if (kProf) t0 = t = clock64();
+  }
+  __device__ void operator()(int phase) {
+    if (!kProf) return;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      p[phase] += now - t;
+      p[kProfSlots - 1] = now - t0;
+      t = now;
+    }
+  }
+};
+
+// W = sum_q P_q w1_q from the six streams, each thread its NV consecutive
+// canonical k of (i, j) at a time: the k index is minor in every stream,
+// so each of the six loads is one NV-vector, and a warp's loads cover
+// contiguous runs; no barrier inside.  Element (i, j, k) of stream q is at
+// wbase[q] + k plus i T o^2 + j o (q = 0, 1), j T o^2 + i o (q = 2, 3),
+// (i o + j) o (q = 4, 5).
+template <typename T, int NV>
+__device__ void build_w_direct(const T* const* src, const long long* wbase,
+                               T* Wsm, int o, int nt) {
+  using V = typename triples::Vec<T>::type;
+  const int oo = o * o, ng = o / NV;
+  const int S0 = triples::w_s0(o), S1 = triples::w_s1(o);
+  const long long too = (long long)nt * oo;
+  const T* base[6];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) base[q] = src[q] + wbase[q];
+  for (int e = threadIdx.x; e < oo * ng; e += blockDim.x) {
+    const int ij = e / ng, k = (e - ij * ng) * NV;
+    const int i = ij / o, j = ij - i * o;
+    const long long off[3] = {i * too + j * o + k, j * too + i * o + k,
+                              (long long)ij * o + k};
+    T x[6][NV];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      const T* p = base[q] + off[q >> 1];
+      if constexpr (NV == 1)
+        x[q][0] = __ldg(p);
+      else
+        *reinterpret_cast<V*>(x[q]) = __ldg(reinterpret_cast<const V*>(p));
+    }
+    T* w = Wsm + i * S0 + j * S1 + k;
+#pragma unroll
+    for (int u = 0; u < NV; ++u)
+      w[u] = ((x[0][u] + x[1][u]) + (x[2][u] + x[3][u]))
+             + (x[4][u] + x[5][u]);
+  }
+}
+
+// The same W by bulk copies into a ring of stages (a profile variant).
+// Chunk c of stream q is o^2
+// contiguous values [u][v]: for q < 4 (ov_first) the plane i' = c,
+// [P1][P2]; for q >= 4 (t2_first) the rows P1 = c, [P2][i'].  In both the
+// minor v lands at canonical k (stride 1 in W), and the element goes to
+// W[c * s_c + u * s_u + v].  A stage holds up to G chunks of one stream,
+// so its elements are distinct; stages are separated by barriers.
+template <typename T>
+__device__ void build_w_ring(const T* const* src, const long long* wbase,
+                             T* Wsm, unsigned char* ring, long long sbytes,
+                             uint64_t* bar, int o, int nt,
+                             long long target) {
+  const int oo = o * o, tid = threadIdx.x;
+  const long long chunk = (long long)oo * sizeof(T);
+  int G = (int)(target / chunk);
+  G = G < 1 ? 1 : (G > o ? o : G);
+  while (G > 1 && G * chunk > sbytes) --G;
+  int ns = (int)(sbytes / (G * chunk));
+  ns = ns > kRingMax ? kRingMax : ns;
+  const long long stage = G * chunk;
+  const int spq = (o + G - 1) / G, nst = 6 * spq;
+  bool by_copy = (chunk & 15) == 0;
+#pragma unroll
+  for (int q = 0; q < 6; ++q) by_copy = by_copy && bulk::aligned16(src[q]);
+  // first value of chunk c of stream q
+  auto chunk_ptr = [&](int q, int c) {
+    return src[q] + wbase[q]
+           + (long long)c * (q < 4 ? (long long)nt * oo : (long long)oo);
+  };
+  auto fetch = [&](int st) {
+    const int q = st / spq, c0 = (st - q * spq) * G;
+    const int cnt = min(G, o - c0);
+    unsigned char* dst = ring + (st % ns) * stage;
+    bulk::mbar_expect_tx(&bar[st % ns], (uint32_t)(cnt * chunk));
+    for (int c = 0; c < cnt; ++c)
+      bulk::bulk_copy(dst + c * chunk, chunk_ptr(q, c0 + c),
+                      (uint32_t)chunk, &bar[st % ns]);
+  };
+  if (by_copy && tid == 0)
+    for (int st = 0; st < ns && st < nst; ++st) fetch(st);
+  // thread: column v, rows R0, R0 + rstep, ... of the stage's cnt * o rows
+  const int v = tid % o, R0 = tid / o, rstep = (int)blockDim.x / o;
+  const bool on = R0 < rstep;
+#pragma unroll 1
+  for (int st = 0; st < nst; ++st) {
+    const int q = st / spq, c0 = (st - q * spq) * G;
+    const int cnt = min(G, o - c0);
+    int p0, p1, p2;
+    perm_of(q, p0, p1, p2);
+    const int si = slot_stride(p0, o), sj = slot_stride(p1, o),
+              sk = slot_stride(p2, o);
+    const int s_c = q < 4 ? si : ((q & 1) ? sk : sj);
+    const int s_u = q < 4 ? ((q & 1) ? sk : sj) : ((q & 1) ? sj : sk);
+    const T* sv = reinterpret_cast<const T*>(ring + (st % ns) * stage);
+    if (by_copy) bulk::mbar_wait(&bar[st % ns], (st / ns) & 1);
+    if (on) {
+      int c = c0, u = R0;
+      for (int R = R0; R < cnt * o; R += rstep) {
+        while (u >= o) {
+          u -= o;
+          ++c;
+        }
+        const T x = by_copy ? sv[R * o + v]
+                            : __ldg(chunk_ptr(q, c) + u * o + v);
+        T* w = Wsm + c * s_c + u * s_u + v;
+        *w = q == 0 ? x : *w + x;
+        u += rstep;
+      }
+    }
+    __syncthreads();     // stage consumed, its W elements written
+    if (by_copy && tid == 0 && st + ns < nst) fetch(st + ns);
+  }
+}
+
+template <typename T, bool kStaged, bool kProf>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* t2s = reinterpret_cast<T*>(smem_raw);   // 6 blocks of o*o
+  extern __shared__ __align__(128) unsigned char smem_raw[];
 
   const int nt = a.nt, o = a.o, oo = o * o;
   const int cell = blockIdx.x;
@@ -88,6 +268,8 @@ combine_kernel(const Args<T> a) {
   const int A = (cell / (nt * nt)) % nt;
   const long long k = cell / (nt * nt * nt);
   double* out = a.out + (long long)cell * a.nsplit + split;
+  Stamp<kProf> stamp(kProf ? a.prof + (long long)cell * kProfSlots
+                           : nullptr);
 
   // degeneracy weight on GLOBAL virtual indices (padded virtuals carry
   // their own global index; their 1e6 energies keep denominators finite)
@@ -108,10 +290,12 @@ combine_kernel(const Args<T> a) {
     af = av[A] * av[nt + B] * av[2 * nt + C];
   }
   const int v[3] = {A, B, C};
+  const int norb = o * (o + 1) * (o + 2) / 6;
 
   // per-perm inputs of this cell, shared by the block
   __shared__ long long wbase[6];
   __shared__ CellPtrs<T> cp;
+  __shared__ uint64_t ring_bar[kRingMax];
   if (threadIdx.x < 6) {
     const int q = threadIdx.x;
     int p0, p1, p2;
@@ -127,52 +311,74 @@ combine_kernel(const Args<T> a) {
     cp.t1z[q] = a.t1 + ((k * 3 + p2) * Tl + z) * o;
     cp.fvoz[q] = a.fvo + ((k * 3 + p2) * Tl + z) * o;
   }
-  __syncthreads();
-  // stage t2p[p2, p1, z, y, :, :] (= t2[n, m, z, y]) for the w2 dots
-  triples::stage_t2zy(cp, t2s, o);
-  __syncthreads();
-
-  const int S1 = triples::w_s1(o), S0 = triples::w_s0(o);
-  T* Wsm = t2s + 6 * oo;
-  auto widx = [&](int q, int i1, int P1, int P2) -> long long {
-    return (q < 4) ? wbase[q] + (long long)i1 * nt * oo + P1 * o + P2
-                   : wbase[q] + (long long)(P1 * o + P2) * o + i1;
-  };
-  if constexpr (kStaged) {
-    // W = sum_p w1_p, canonical order (lanes along k: coalesced reads)
-    for (int e = threadIdx.x; e < o * oo; e += blockDim.x) {
-      const int oc[3] = {e / oo, (e / o) % o, e % o};
-      T w = T(0);
-#pragma unroll
-      for (int q = 0; q < 6; ++q) {
-        int p0, p1, p2;
-        perm_of(q, p0, p1, p2);
-        const int i1 = oc[p0], j1 = oc[p1], k1 = oc[p2];
-        // W_PLAN: even perms pair (j,k), odd perms (k,j)
-        w += __ldg(a.w[q] + widx(q, i1, (q & 1) ? k1 : j1,
-                                 (q & 1) ? j1 : k1));
-      }
-      Wsm[oc[0] * S0 + oc[1] * S1 + oc[2]] = w;
-    }
-    __syncthreads();
-    // W -= sum_p P_p w2_p (small GEMMs on the staged t2 blocks)
-    triples::subtract_w2(cp, t2s, Wsm, o);
+  if (kStaged && threadIdx.x == 0) {
+    for (int s = 0; s < kRingMax; ++s) bulk::mbar_init(&ring_bar[s], 1);
+    bulk::mbar_init_fence();
   }
+  __syncthreads();
+  stamp(kSetup);
 
-  // the unstaged form computes each W value where it is needed: its six
-  // w1 reads and six w2 dots (each a row of vooo against a staged column)
-  auto wval = [&](const int* oc) -> T {
-    if constexpr (kStaged) {
+  double acc;
+  if constexpr (kStaged) {
+    T* Wsm = reinterpret_cast<T*>(smem_raw);
+    unsigned char* scratch = smem_raw + triples::w_bytes(o, sizeof(T));
+    constexpr int VN = triples::Vec<T>::n;
+    bool vec = o % VN == 0;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) vec = vec && bulk::aligned16(a.w[q]);
+    if (a.variant & kVarWRing)
+      build_w_ring<T>(a.w, wbase, Wsm, scratch, a.scratch, ring_bar, o, nt,
+                      (a.variant & kVarBigStages) ? 2 * kStageTarget
+                                                  : kStageTarget);
+    else if (vec)
+      build_w_direct<T, VN>(a.w, wbase, Wsm, o, nt);
+    else
+      build_w_direct<T, 1>(a.w, wbase, Wsm, o, nt);
+    __syncthreads();
+    stamp(kWBuild);
+    // W -= sum_p P_p w2_p (GEMMs on the fp64 tensor cores or FFMA)
+    triples::subtract_w2(cp, Wsm, scratch, a.scratch, o,
+                         triples::kW2Dmma != bool(a.variant & kVarW2),
+                         a.variant & kVarW2Staged);
+    stamp(kW2);
+    const int S1 = triples::w_s1(o), S0 = triples::w_s0(o);
+    auto wval = [&](const int* oc) -> T {
       return Wsm[oc[0] * S0 + oc[1] * S1 + oc[2]];
+    };
+    T* vs = reinterpret_cast<T*>(scratch);
+    if (triples::vstage_elems(o) * (long long)sizeof(T) <= a.scratch) {
+      triples::stage_vterms(cp, vs, o);
+      __syncthreads();
+      stamp(kVStage);
+      acc = triples::orbit_energy<T, true>(
+          cp, vs, a.orbits, norb, a.eijk, a.actocc, a.act_mode, eabc, af, o,
+          threadIdx.x, blockDim.x, wval);
     } else {
+      acc = triples::orbit_energy<T, false>(
+          cp, vs, a.orbits, norb, a.eijk, a.actocc, a.act_mode, eabc, af, o,
+          threadIdx.x, blockDim.x, wval);
+    }
+  } else {
+    // stage t2p[p2, p1, z, y, :, :] (= t2[n, m, z, y]) for the w2 dots
+    T* t2s = reinterpret_cast<T*>(smem_raw);   // 6 blocks of o*o
+    for (int e = threadIdx.x; e < 6 * oo; e += blockDim.x)
+      t2s[e] = cp.t2zy[e / oo][e % oo];
+    __syncthreads();
+    stamp(kT2Stage);
+    // each W value where it is needed: its six w1 reads and six w2 dots
+    // (each a row of vooo against a staged column)
+    auto wval = [&](const int* oc) -> T {
       T W = T(0);
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
         int p0, p1, p2;
         perm_of(q, p0, p1, p2);
         const int i1 = oc[p0], j1 = oc[p1], k1 = oc[p2];
-        W += __ldg(a.w[q] + widx(q, i1, (q & 1) ? k1 : j1,
-                                 (q & 1) ? j1 : k1));
+        // W_PLAN: even perms pair (j,k), odd perms (k,j)
+        const int P1 = (q & 1) ? k1 : j1, P2 = (q & 1) ? j1 : k1;
+        W += __ldg(a.w[q] + wbase[q]
+                   + ((q < 4) ? (long long)i1 * nt * oo + P1 * o + P2
+                              : (long long)(P1 * o + P2) * o + i1));
         const T* vr = cp.vooo[q] + (i1 * o + j1) * o;
         const T* tc = t2s + q * oo + k1;
         T w2 = T(0);
@@ -180,22 +386,25 @@ combine_kernel(const Args<T> a) {
         W -= w2;
       }
       return W;
-    }
-  };
-  const double acc = triples::orbit_energy(
-      cp, a.eijk, a.actocc, a.act_mode, eabc, af, o,
-      split * blockDim.x + threadIdx.x, a.nsplit * blockDim.x, wval);
+    };
+    acc = triples::orbit_energy<T, false>(
+        cp, nullptr, a.orbits, norb, a.eijk, a.actocc, a.act_mode, eabc, af,
+        o, split * blockDim.x + threadIdx.x, a.nsplit * blockDim.x, wval);
+  }
+  stamp(kOrbit);
   const double t = triples::block_sum(acc);
   if (threadIdx.x == 0) *out = t * wgt;
+  stamp(kSum);
 }
 
 template <typename T>
 int launch(int K, int nt, int o, int nsplit, int staged,
-           const void* const* w,
-           const void* vooo, const void* t2p, const void* oovv,
-           const void* t1, const void* fvo, const void* eijk,
-           const void* gabc, const void* evt, const void* actv,
-           const void* actocc, int act_mode, void* out, void* stream) {
+           const void* const* w, const void* vooo, const void* t2p,
+           const void* oovv, const void* t1, const void* fvo,
+           const void* eijk, const void* orbits, const void* gabc,
+           const void* evt, const void* actv, const void* actocc,
+           int act_mode, void* out, void* prof, int variant,
+           void* stream) {
   Args<T> a;
   for (int q = 0; q < 6; ++q) a.w[q] = static_cast<const T*>(w[q]);
   a.vooo = static_cast<const T*>(vooo);
@@ -204,6 +413,7 @@ int launch(int K, int nt, int o, int nsplit, int staged,
   a.t1 = static_cast<const T*>(t1);
   a.fvo = static_cast<const T*>(fvo);
   a.eijk = static_cast<const T*>(eijk);
+  a.orbits = static_cast<const int*>(orbits);
   a.gabc = static_cast<const int*>(gabc);
   a.evt = static_cast<const T*>(evt);
   a.actv = static_cast<const T*>(actv);
@@ -211,21 +421,28 @@ int launch(int K, int nt, int o, int nsplit, int staged,
   a.act_mode = act_mode;
   a.nt = nt;
   a.o = o;
-  a.nsplit = nsplit;
+  a.nsplit = staged ? 1 : nsplit;
+  a.scratch = staged ? scratch_bytes(o, sizeof(T)) : 0;
   a.out = static_cast<double*>(out);
+  a.prof = static_cast<long long*>(prof);
+  a.variant = variant;
   // staged: W in shared memory, one block per cell; the caller checks
   // that it fits (triples_combine_staged_bytes)
-  if (staged) a.nsplit = 1;
-  const size_t smem = sizeof(T) * (staged ? (size_t)staged_elems(o)
-                                          : 6 * (size_t)o * o);
-  auto kern = staged ? combine_kernel<T, true> : combine_kernel<T, false>;
+  const long long smem = staged ? staged_bytes(o, sizeof(T))
+                                : 6LL * o * o * sizeof(T);
+  if (smem > kSmemDynMax) return (int)cudaErrorInvalidValue;
+  auto kern = prof ? (staged ? combine_kernel<T, true, true>
+                             : combine_kernel<T, false, true>)
+                   : (staged ? combine_kernel<T, true, false>
+                             : combine_kernel<T, false, false>);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((unsigned)(K * nt * nt * nt), (unsigned)a.nsplit);
-  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kern<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
@@ -235,33 +452,49 @@ extern "C" {
 
 int triples_combine_threads() { return kThreads; }
 
-// shared-memory bytes the staged kernel needs for nocc = o
+// dynamic shared-memory bytes of the staged form for nocc = o (over
+// triples_combine_smem_max(): the unstaged form runs)
 long long triples_combine_staged_bytes(int o, int itemsize) {
-  return staged_elems(o) * itemsize;
+  return staged_bytes(o, itemsize);
+}
+long long triples_combine_smem_max() { return kSmemDynMax; }
+
+// whether the staged form reads the V-term inputs from shared memory
+int triples_combine_v_staged(int o, int itemsize) {
+  return triples::vstage_elems(o) * itemsize <= scratch_bytes(o, itemsize);
 }
 
-int triples_combine_f32(int K, int nt, int o, int nsplit, int staged,
-                        const void* const* w, const void* vooo,
-                        const void* t2p, const void* oovv, const void* t1,
-                        const void* fvo, const void* eijk, const void* gabc,
-                        const void* evt, const void* actv,
-                        const void* actocc, int act_mode, void* out,
-                        void* stream) {
-  return launch<float>(K, nt, o, nsplit, staged, w, vooo, t2p, oovv, t1,
-                       fvo, eijk, gabc, evt, actv, actocc, act_mode, out,
-                       stream);
+// orbits: the (o (o+1) (o+2) / 6,) int32 occupied-orbit table
+#define COMBINE_ARGS                                                        \
+  int K, int nt, int o, int nsplit, int staged, const void* const* w,      \
+      const void* vooo, const void* t2p, const void* oovv, const void* t1, \
+      const void* fvo, const void* eijk, const void* orbits,               \
+      const void* gabc, const void* evt, const void* actv,                 \
+      const void* actocc, int act_mode, void* out
+#define COMBINE_PASS                                                        \
+  K, nt, o, nsplit, staged, w, vooo, t2p, oovv, t1, fvo, eijk, orbits,     \
+      gabc, evt, actv, actocc, act_mode, out
+
+int triples_combine_f32(COMBINE_ARGS, void* stream) {
+  return launch<float>(COMBINE_PASS, nullptr, 0, stream);
+}
+int triples_combine_f64(COMBINE_ARGS, void* stream) {
+  return launch<double>(COMBINE_PASS, nullptr, 0, stream);
 }
 
-int triples_combine_f64(int K, int nt, int o, int nsplit, int staged,
-                        const void* const* w, const void* vooo,
-                        const void* t2p, const void* oovv, const void* t1,
-                        const void* fvo, const void* eijk, const void* gabc,
-                        const void* evt, const void* actv,
-                        const void* actocc, int act_mode, void* out,
-                        void* stream) {
-  return launch<double>(K, nt, o, nsplit, staged, w, vooo, t2p, oovv, t1,
-                        fvo, eijk, gabc, evt, actv, actocc, act_mode, out,
-                        stream);
+// the profile form, a measurement aid that no engine calls: prof is
+// (K,T,T,T,8) int64 zeros that receive each cell's SM clocks per phase
+// (enum Phase) and in all (last slot); variant: enum Variant bits
+int triples_combine_profile_f32(COMBINE_ARGS, void* prof, int variant,
+                                void* stream) {
+  return launch<float>(COMBINE_PASS, prof, variant, stream);
 }
+int triples_combine_profile_f64(COMBINE_ARGS, void* prof, int variant,
+                                void* stream) {
+  return launch<double>(COMBINE_PASS, prof, variant, stream);
+}
+
+#undef COMBINE_ARGS
+#undef COMBINE_PASS
 
 }  // extern "C"

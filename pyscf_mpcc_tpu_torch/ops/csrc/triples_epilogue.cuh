@@ -2,22 +2,47 @@
 // triples_resident.cu): the w2 dots that one (a, b, c) cell subtracts from
 // its W, and the occupied-orbit V / Z / energy phase.
 //
-// One block owns one cell.  Its W (o^3 values, canonical (i, j, k) order)
-// lives in shared memory with padded strides, so that a warp writing along
-// any one canonical axis hits 32 different banks.  The inputs of the cell's
-// six joint (abc)/(ijk) permutations q (PERMS order) are given as pointers;
-// for perm q the tile roles are x = p0, y = p1, z = p2 and the source
-// occupied indices (i', j', k') land at canonical slots (p0, p1, p2).
+// One block of kEpiThreads threads owns one cell.  Its W (o^3 values,
+// canonical (i, j, k) order) lives in shared memory with padded strides, so
+// that a warp writing along any one canonical axis hits 32 different
+// banks.  Beside W the kernel hands the epilogue a scratch area of shared
+// memory (at least 6 o^2 values), free once W is built.  The inputs of the
+// cell's six joint (abc)/(ijk) permutations q (PERMS order) are given as
+// pointers; for perm q the tile roles are x = p0, y = p1, z = p2 and the
+// source occupied indices (i', j', k') land at canonical slots (p0, p1, p2).
+//
+// w2 (subtract_w2): per perm a GEMM C (o^2 x o) = vooo_q (o^2 x o) .
+// t2zy_q (o x o) with K = o.  The o x o block of t2 is staged by the
+// threads.  The kernels run it on the fp64 tensor cores (mma.sync
+// m16n8k16, m16n8k8 in fp64; fp32 operands widened, so never less
+// accurate than fp32), each warp a 16 x 32 tile of C in 4 fragments whose
+// vooo rows it reads with 16-byte loads from device memory (L2).  On the
+// card (bench tile) that beat an FFMA register tile of 4 x 4 a thread and
+// vooo chunks staged by bulk copies, which the profile form still runs for
+// comparison.  The tile is subtracted from W at the perm's permuted
+// positions.
+//
+// Orbit phase (orbit_energy): the energy needs V only at the six
+// permutations of (i, j, k), and e_ijk and the occupied mask are symmetric
+// under them, so one thread owns one occupied orbit {sigma(i,j,k)},
+// i >= j >= k, read from a table built on the host, and adds the V term to
+// its six W values in registers.  The V-term inputs (the oovv and t2yx
+// blocks, t1 and fvo rows of the six perms) are staged in the scratch when
+// they fit (stage_vterms), else read from device memory.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace triples {
 
-constexpr int kRows = 8;    // w2 rows per thread
+constexpr int kEpiThreads = 512;   // threads of a block of either kernel
+constexpr int kTM = 4, kTN = 4;    // w2 register tile: rows x columns
 
-// 16-byte vector of T, for the vooo row loads
+// 16-byte vector of T
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   using type = float4;
@@ -49,10 +74,21 @@ __host__ __device__ __forceinline__ int w_s0(int o) { return o * (o + 1) + 1; }
 __host__ __device__ __forceinline__ long long w_elems(int o) {
   return (long long)o * w_s0(o);
 }
+__host__ __device__ __forceinline__ long long align128(long long b) {
+  return (b + 127) & ~127LL;
+}
+// bytes of the cell's padded W, where the scratch begins
+__host__ __device__ __forceinline__ long long w_bytes(int o, int itemsize) {
+  return align128(w_elems(o) * itemsize);
+}
 
 // canonical W stride of the source occupied index that lands at slot s
-__device__ __forceinline__ int slot_stride(int s, int o) {
+__host__ __device__ __forceinline__ int slot_stride(int s, int o) {
   return s == 0 ? w_s0(o) : s == 1 ? w_s1(o) : 1;
+}
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
 // the epilogue inputs of one cell, per perm q
@@ -66,104 +102,351 @@ struct CellPtrs {
   const T* fvoz[6];  // (o,) fvo[z, k']
 };
 
-// copy the six t2zy blocks of the w2 dots into shared memory (6 * o * o)
-template <typename T>
-__device__ void stage_t2zy(const CellPtrs<T>& c, T* t2s, int o) {
-  const int oo = o * o;
-  for (int e = threadIdx.x; e < 6 * oo; e += blockDim.x)
-    t2s[e] = c.t2zy[e / oo][e % oo];
+// ---------------------------------------------------------------------------
+// w2 dots
+// ---------------------------------------------------------------------------
+
+// the w2 form the kernels run: DMMA (fp64 tensor cores, fp32 operands
+// widened), or the FFMA register tile (the profile form runs the other)
+constexpr bool kW2Dmma = true;
+
+// The staging of the w2 GEMM in a scratch of sbytes: the t2 block (zero
+// beyond o) at the start, then nb buffers of rb vooo rows.  K runs to kf
+// (o rounded up to a 16-byte vector of T) in the FFMA form, to kd (o
+// rounded up to 4 vectors) in the DMMA form, whose lane t of a fragment
+// takes k = k0 + VN t + s at step s of a block of 4 VN.  A chunk is one
+// bulk copy at row stride o when the form's k depth is o; otherwise the
+// threads copy it at row stride kd, zero beyond o.  The t2 block: values
+// of T at row stride bn (o rounded up to 8) for FFMA; doubles at row
+// stride bn + 4 / VN for DMMA, so that the fragments' 4 k rows fall in
+// distinct banks.  A warp owns 16 rows and 32 columns of C; ncb warps side
+// by side cover the o columns, kEpiThreads / 32 / ncb of them the rows of
+// a pass.
+struct W2Plan {
+  int kf, kd, bn, ncb, rb, nb;
+  long long b_bytes, a_bytes;     // t2 block; one vooo buffer
+};
+
+__host__ __device__ inline W2Plan w2_plan(int o, int itemsize,
+                                          long long sbytes) {
+  W2Plan p;
+  const int vn = 16 / itemsize;
+  p.kf = round_up(o, vn);
+  p.kd = round_up(o, 4 * vn);
+  p.bn = round_up(o, 8);
+  const long long bf = (long long)p.kf * p.bn * itemsize;
+  const long long bd = (long long)p.kd * (p.bn + 4 / vn) * 8;
+  p.b_bytes = ((bf > bd ? bf : bd) + 15) / 16 * 16;
+  p.ncb = (o + 31) / 32;
+  const long long row = (long long)p.kd * itemsize;
+  // rows of one pass of all warps, no more than vooo has (rounded to 64,
+  // the row block of four DMMA warps)
+  int full = kEpiThreads / 32 / p.ncb * 4 * kTM;
+  full = full < round_up(o * o, 64) ? full : round_up(o * o, 64);
+  const long long avail = sbytes - p.b_bytes;
+  if (avail >= 2 * full * row) {
+    p.nb = 2;
+    p.rb = full;
+  } else {
+    p.nb = 1;
+    const long long r = avail / row / 64 * 64;
+    p.rb = r < full ? (int)r : full;
+  }
+  p.a_bytes = p.rb * row;
+  return p;
 }
 
-// W -= sum_q P_q w2_q with w2_q[i',j',k'] = sum_m vooo[(i',j'), m] t2zy[m, k'],
-// one perm per pass (each pass writes every element once, at permuted
-// positions, so passes are separated by a barrier).  t2s holds the staged
-// blocks (stage_t2zy, followed by a barrier).
+// the scratch bytes that stage the w2 GEMM with two full buffers
+__host__ __device__ inline long long w2_bytes_wanted(int o, int itemsize) {
+  const W2Plan p = w2_plan(o, itemsize, 1LL << 40);
+  return p.b_bytes + 2 * p.a_bytes;
+}
+
+// d += a . b on the fp64 tensor cores: A 16 x 8 (row), B 8 x 8 (col);
+// lane 4 g + t holds A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4] in a0-a3,
+// B[t][g], B[t+4][g] in b0-b1 and D[g][2 t + e], D[g+8][2 t + e] in d
+__device__ __forceinline__ void dmma_16808(double (&d)[4], double a0,
+                                           double a1, double a2, double a3,
+                                           double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+// the same with K = 16: lane 4 g + t holds A[g + 8 h][t + 4 u] in a[2 u +
+// h] and B[t + 4 u][g] in b[u]
+__device__ __forceinline__ void dmma_16816(double (&d)[4],
+                                           const double (&a)[8],
+                                           const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// W -= sum_q P_q w2_q with w2_q[i',j',k'] = sum_m vooo[(i',j'), m]
+// t2zy[m, k'].  Chunks of vooo rows run in sequence over the six perms;
+// each writes its W elements once, and chunks are separated by a barrier.
+// Where the form's k depth is o and o^2 a multiple of 16, the fragments
+// are read straight from device memory (L2: a tile's 24 vooo slices are
+// shared by its cells), one chunk a perm; else (or with staged) a chunk
+// is staged in shared memory: by one bulk copy that thread 0 starts and an
+// mbarrier counts, or by the threads (zero-padded) where the rows are not
+// 16-byte multiples.  scratch: sbytes of shared memory (16-byte aligned)
+// that no thread still reads; a barrier precedes the call.
 template <typename T>
-__device__ void subtract_w2(const CellPtrs<T>& c, const T* t2s, T* Wsm,
-                            int o) {
-  const int oo = o * o;
+__device__ void subtract_w2(const CellPtrs<T>& c, T* Wsm,
+                            unsigned char* scratch, long long sbytes,
+                            int o, bool dmma = kW2Dmma,
+                            bool staged = false) {
+  constexpr int VN = Vec<T>::n;
+  using V = typename Vec<T>::type;
+  __shared__ uint64_t bar[2];
+  W2Plan pl = w2_plan(o, sizeof(T), sbytes);
+  const int tid = threadIdx.x, oo = o * o;
+  const int lane = tid & 31, warp = tid >> 5;
+  T* Bs = reinterpret_cast<T*>(scratch);            // FFMA form
+  double* Bd = reinterpret_cast<double*>(scratch);  // DMMA form
+  const int bsd = pl.bn + 4 / VN;
+  const int kdep = dmma ? pl.kd : pl.kf;
+  auto abuf = [&](int n) {
+    return reinterpret_cast<T*>(scratch + pl.b_bytes
+                                + (n % pl.nb) * pl.a_bytes);
+  };
+  bool by_copy = kdep == o;
+#pragma unroll
+  for (int q = 0; q < 6; ++q)
+    by_copy = by_copy && bulk::aligned16(c.vooo[q]);
+  const bool direct = by_copy && oo % 16 == 0 && !staged;
+  if (direct) pl.rb = oo;                  // one chunk a perm
+  by_copy = by_copy && !direct;
+  const int nch = (oo + pl.rb - 1) / pl.rb, total = 6 * nch;
+  const int as = (by_copy || direct) ? o : pl.kd;   // row stride of A
+  // thread 0: the copy of chunk n (perm n / nch, rows r0 .. r0 + rows)
+  auto fetch = [&](int n) {
+    const int q = n / nch, r0 = (n - q * nch) * pl.rb;
+    const int rows = min(pl.rb, oo - r0);
+    const uint32_t bytes = (uint32_t)(rows * o * sizeof(T));
+    bulk::mbar_expect_tx(&bar[n % pl.nb], bytes);
+    bulk::bulk_copy(abuf(n), c.vooo[q] + (long long)r0 * o, bytes,
+                    &bar[n % pl.nb]);
+  };
+  if (tid == 0) {
+    bulk::mbar_init(&bar[0], 1);
+    bulk::mbar_init(&bar[1], 1);
+    bulk::mbar_init_fence();
+  }
+  // the scratch was read (and may have been written) by ordinary accesses
+  bulk::fence_proxy_async();
+  __syncthreads();
+  if (by_copy && tid == 0)
+    for (int n = 0; n < pl.nb && n < total; ++n) fetch(n);
+
+  // warp (rw, cb): rows rw * 16 .. + 15 (+ 16 nrw a pass) of a chunk,
+  // columns 32 cb .. + 31.  FFMA: lane (rg, cg) holds rows 4 i + rg and
+  // columns 4 cg + j.  DMMA: two row tiles of 8, up to four column tiles.
+  const int cb = warp % pl.ncb, rw = warp / pl.ncb;
+  const int nrw = (int)(blockDim.x >> 5) / pl.ncb;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int col0 = 32 * cb + kTN * cg;
+  const int g = lane >> 2, t = lane & 3;
+  const int nct = min(4, (o - 32 * cb + 7) / 8);   // DMMA column tiles
 #pragma unroll 1
-  for (int q = 0; q < 6; ++q) {
+  for (int n = 0; n < total; ++n) {
+    const int q = n / nch, r0 = (n - q * nch) * pl.rb;
+    const int rows = min(pl.rb, oo - r0);
+    const T* A = direct ? c.vooo[q] : abuf(n);
+    if (r0 == 0) {       // the perm's t2 block, zero beyond o
+      const T* tz = c.t2zy[q];
+      const int bs = dmma ? bsd : pl.bn;
+      for (int e = tid; e < kdep * bs; e += blockDim.x) {
+        const int m = e / bs, kk = e - m * bs;
+        const T x = (m < o && kk < o) ? tz[m * o + kk] : T(0);
+        if (dmma)
+          Bd[e] = (double)x;
+        else
+          Bs[e] = x;
+      }
+    }
+    if (!by_copy && !direct) {   // the chunk by the threads, zero beyond o
+      const T* v = c.vooo[q] + (long long)r0 * o;
+      T* a = abuf(n);
+      for (int e = tid; e < rows * pl.kd; e += blockDim.x) {
+        const int r = e / pl.kd, m = e - r * pl.kd;
+        a[e] = m < o ? v[r * o + m] : T(0);
+      }
+    }
+    __syncthreads();
+    if (by_copy) bulk::mbar_wait(&bar[n % pl.nb], (n / pl.nb) & 1);
     int p0, p1, p2;
     perm_of(q, p0, p1, p2);
     const int si = slot_stride(p0, o), sj = slot_stride(p1, o),
               sk = slot_stride(p2, o);
-    // thread (grp, k1) computes kRows consecutive rows (i1 j1) of column
-    // k1: the lanes of a warp share the rows, so each vooo load is a
-    // broadcast, and 16-byte loads bring several m at once
-    const T* vq = c.vooo[q];
-    const T* tq = t2s + q * oo;
-    const bool vec = o % Vec<T>::n == 0
-        && (reinterpret_cast<unsigned long long>(vq) & 15) == 0;
-    const int ngrp = blockDim.x / o;
-    const int grp = threadIdx.x / o, k1 = threadIdx.x - grp * o;
-    for (int row0 = grp * kRows; grp < ngrp && row0 < oo;
-         row0 += ngrp * kRows) {
-      T acc[kRows];
+    if (dmma) {
+      // warp (rw, cb) holds rows 8 g + mi (mi = 0, 1; the MMA rows g and
+      // g + 8) from base rb0 = 64 (rw / 4) + 2 (rw % 4) (+ 16 nrw a pass):
+      // with W's strides all 1 mod 32, its 32 lanes then subtract into
+      // distinct banks at o = 32.  Lane t takes k = k0 + VN t + u for the
+      // MMA's k slot t + 4 u, so one MMA takes a k block from one 16-byte
+      // vector of each of its two rows.  The A vectors of the next k block
+      // (or of the next row block) load while this one runs.
+      const int rbase = 64 * (rw >> 2) + 2 * (rw & 3);
+      V n0, n1;
+      if (rbase < rows) {
+        const T* ap = A + (rbase + 8 * g) * as + VN * t;
+        n0 = *reinterpret_cast<const V*>(ap);
+        n1 = *reinterpret_cast<const V*>(ap + as);
+      }
+      const double* bp = Bd + VN * t * bsd + 32 * cb + g;
+      for (int rb0 = rbase; rb0 < rows; rb0 += nrw * 16) {
+        double acc[4][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = T(0);
-      if (vec && row0 + kRows <= oo) {
-        using V = typename Vec<T>::type;
-        for (int m0 = 0; m0 < o; m0 += Vec<T>::n) {
-          T tv[Vec<T>::n];
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int u = 0; u < Vec<T>::n; ++u) tv[u] = tq[(m0 + u) * o + k1];
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.0;
+        const T* ap = A + (rb0 + 8 * g) * as + VN * t;
+#pragma unroll 1
+        for (int k0 = 0; k0 < pl.kd; k0 += 4 * VN) {
+          T a[2][VN];
+          *reinterpret_cast<V*>(a[0]) = n0;
+          *reinterpret_cast<V*>(a[1]) = n1;
+          const bool more = k0 + 4 * VN < pl.kd;
+          if (more || rb0 + nrw * 16 < rows) {
+            const T* pn = more ? ap + k0 + 4 * VN : ap + nrw * 16 * as;
+            n0 = *reinterpret_cast<const V*>(pn);
+            n1 = *reinterpret_cast<const V*>(pn + as);
+          }
+          if constexpr (VN == 4) {      // one k16 MMA a column tile
+            double af[8];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            T vv[Vec<T>::n];
-            *reinterpret_cast<V*>(vv) = __ldg(
-                reinterpret_cast<const V*>(vq + (row0 + r) * o + m0));
+            for (int u = 0; u < 4; ++u) {
+              af[2 * u] = (double)a[0][u];
+              af[2 * u + 1] = (double)a[1][u];
+            }
+            const double* br = bp + k0 * bsd;
 #pragma unroll
-            for (int u = 0; u < Vec<T>::n; ++u) acc[r] += vv[u] * tv[u];
+            for (int j = 0; j < 4; ++j) {
+              if (j < nct) {
+                const double bf[4] = {br[8 * j], br[bsd + 8 * j],
+                                      br[2 * bsd + 8 * j],
+                                      br[3 * bsd + 8 * j]};
+                dmma_16816(acc[j], af, bf);
+              }
+            }
+          } else {                      // one k8 MMA a column tile
+            const double* br = bp + k0 * bsd;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j < nct)
+                dmma_16808(acc[j], (double)a[0][0], (double)a[1][0],
+                           (double)a[0][1], (double)a[1][1], br[8 * j],
+                           br[bsd + 8 * j]);
+            }
           }
         }
-      } else {
-        for (int m = 0; m < o; ++m) {
-          const T tv = tq[m * o + k1];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            if (row0 + r < oo) acc[r] += __ldg(vq + (row0 + r) * o + m) * tv;
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = rb0 + 8 * g + mi;
+          if (r >= rows) continue;
+          const int row = r0 + r, i1 = row / o, j1 = row - i1 * o;
+          T* w = Wsm + i1 * si + j1 * sj;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 32 * cb + 8 * j + 2 * t + e;
+              if (j < nct && col < o) w[col * sk] -= (T)acc[j][2 * mi + e];
+            }
         }
       }
+    } else {
+      for (int rb0 = rw * 16; col0 < o && rb0 < rows; rb0 += nrw * 16) {
+        T acc[kTM][kTN];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = row0 + r;
-        if (row < oo) {
-          const int i1 = row / o, j1 = row - i1 * o;
-          Wsm[i1 * si + j1 * sj + k1 * sk] -= acc[r];
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
+        const T* ar = A + (rb0 + rg) * as;
+#pragma unroll 2
+        for (int k0 = 0; k0 < pl.kf; k0 += VN) {
+          T av[kTM][VN], bv[VN][kTN];
+#pragma unroll
+          for (int i = 0; i < kTM; ++i)
+            *reinterpret_cast<V*>(av[i]) =
+                *reinterpret_cast<const V*>(ar + 4 * i * as + k0);
+#pragma unroll
+          for (int u = 0; u < VN; ++u)
+#pragma unroll
+            for (int h = 0; h < kTN / VN; ++h)
+              *reinterpret_cast<V*>(bv[u] + h * VN) =
+                  *reinterpret_cast<const V*>(Bs + (k0 + u) * pl.bn + col0
+                                              + h * VN);
+#pragma unroll
+          for (int u = 0; u < VN; ++u)
+#pragma unroll
+            for (int i = 0; i < kTM; ++i)
+#pragma unroll
+              for (int j = 0; j < kTN; ++j) acc[i][j] += av[i][u] * bv[u][j];
+        }
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+          const int r = rb0 + 4 * i + rg;
+          if (r >= rows) continue;
+          const int row = r0 + r, i1 = row / o, j1 = row - i1 * o;
+          T* w = Wsm + i1 * si + j1 * sj;
+#pragma unroll
+          for (int j = 0; j < kTN; ++j)
+            if (col0 + j < o) w[(col0 + j) * sk] -= acc[i][j];
         }
       }
     }
-    __syncthreads();
+    __syncthreads();     // chunk n consumed, its W elements written
+    if (by_copy && tid == 0 && n + pl.nb < total) fetch(n + pl.nb);
   }
 }
 
-// Sum over this thread's occupied orbits {sigma(i,j,k)}, i >= j >= k
-// (orbits orb0, orb0 + ostride, ...), of W * Z / (e_ijk - e_abc) [* mask].
-// The energy needs V only at the six permutations of (i, j, k), and e_ijk
-// and the occupied mask are symmetric under them, so one thread adds the
-// V term to the orbit's six W values in registers.  wval(oc) returns W at
-// canonical (oc[0], oc[1], oc[2]).
-template <typename T, typename WFn>
-__device__ double orbit_energy(const CellPtrs<T>& c, const T* eijk,
+// ---------------------------------------------------------------------------
+// orbit phase
+// ---------------------------------------------------------------------------
+
+// values of the staged V-term inputs: oovv_q and t2yx_q (12 blocks of o
+// rows at stride o + 1, so that a warp gathering along either index of
+// the block hits distinct banks), then t1z_q and fvoz_q (12 x o)
+__host__ __device__ __forceinline__ long long vstage_elems(int o) {
+  return 12LL * o * (o + 1) + 12LL * o;
+}
+
+template <typename T>
+__device__ void stage_vterms(const CellPtrs<T>& c, T* s, int o) {
+  const int oo = o * o, blk = o * (o + 1);
+  for (int e = threadIdx.x; e < 12 * oo; e += blockDim.x) {
+    const int q = e / oo, r = e - q * oo, i = r / o, j = r - i * o;
+    s[q * blk + i * (o + 1) + j] = q < 6 ? c.oovv[q][r] : c.t2yx[q - 6][r];
+  }
+  for (int e = threadIdx.x; e < 12 * o; e += blockDim.x) {
+    const int q = e / o, r = e - q * o;
+    s[12 * blk + e] = q < 6 ? c.t1z[q][r] : c.fvoz[q - 6][r];
+  }
+}
+
+// Sum over this thread's occupied orbits (table entries orb0, orb0 +
+// ostride, ...: r0 | r1 << 8 | r2 << 16 with r0 >= r1 >= r2) of
+// W * Z / (e_ijk - e_abc) [* mask].  wval(oc) returns W at canonical
+// (oc[0], oc[1], oc[2]).  kVStaged: the V-term inputs are in shared memory
+// at vs (stage_vterms), else read through c.
+template <typename T, bool kVStaged, typename WFn>
+__device__ double orbit_energy(const CellPtrs<T>& c, const T* vs,
+                               const int* orbits, int norb, const T* eijk,
                                const T* actocc, int act_mode, T eabc, T af,
                                int o, int orb0, int ostride, WFn wval) {
+  const int blk = o * (o + 1), rv = 12 * blk;
   double acc = 0.0;
-  const int norb = o * (o + 1) * (o + 2) / 6;
   for (int orb = orb0; orb < norb; orb += ostride) {
-    // decode the orbit representative r0 >= r1 >= r2
-    int r0 = 0, before = 0;
-    while (before + (r0 + 1) * (r0 + 2) / 2 <= orb) {
-      before += (r0 + 1) * (r0 + 2) / 2;
-      ++r0;
-    }
-    int rem = orb - before, r1 = 0;
-    while (rem >= r1 + 1) {
-      rem -= r1 + 1;
-      ++r1;
-    }
-    const int r[3] = {r0, r1, rem};
-
+    const int code = __ldg(orbits + orb);
+    const int r[3] = {code & 255, (code >> 8) & 255, code >> 16};
     T Wv[6], Vv[6];
 #pragma unroll
     for (int s = 0; s < 6; ++s) {
@@ -176,14 +459,29 @@ __device__ double orbit_energy(const CellPtrs<T>& c, const T* eijk,
       for (int q = 0; q < 6; ++q) {
         int p0, p1, p2;
         perm_of(q, p0, p1, p2);
-        const int ij = oc[p0] * o + oc[p1], k1 = oc[p2];
-        vt += T(0.5) * (__ldg(c.oovv[q] + ij) * __ldg(c.t1z[q] + k1)
-                        + __ldg(c.t2yx[q] + ij) * __ldg(c.fvoz[q] + k1));
+        const int k1 = oc[p2];
+        if constexpr (kVStaged) {
+          const int ij = oc[p0] * (o + 1) + oc[p1];
+          vt += T(0.5) * (vs[q * blk + ij] * vs[rv + q * o + k1]
+                          + vs[(6 + q) * blk + ij]
+                            * vs[rv + (6 + q) * o + k1]);
+        } else {
+          const int ij = oc[p0] * o + oc[p1];
+          vt += T(0.5) * (__ldg(c.oovv[q] + ij) * __ldg(c.t1z[q] + k1)
+                          + __ldg(c.t2yx[q] + ij) * __ldg(c.fvoz[q] + k1));
+        }
       }
       Wv[s] = W;
       Vv[s] = W + vt;
     }
-
+    // e_ijk and the mask are symmetric: one load each for the orbit
+    const int eidx = (r[0] * o + r[1]) * o + r[2];
+    const T den = __ldg(eijk + eidx) - eabc;
+    T scale = T(1);
+    if (act_mode) {
+      const T act6 = af * __ldg(actocc + eidx);
+      scale = (act_mode == 1) ? T(1) - act6 : act6;
+    }
 #pragma unroll
     for (int s = 0; s < 6; ++s) {
       int s0, s1, s2;
@@ -204,13 +502,7 @@ __device__ double orbit_energy(const CellPtrs<T>& c, const T* eijk,
           - T(2) * (Vv[perm_id(q[2], q[1], q[0])]
                     + Vv[perm_id(q[0], q[2], q[1])]
                     + Vv[perm_id(q[1], q[0], q[2])]);
-      const int eidx = (e0 * o + e1) * o + e2;
-      T zd = Z / (__ldg(eijk + eidx) - eabc);
-      if (act_mode) {
-        const T act6 = af * __ldg(actocc + eidx);
-        zd *= (act_mode == 1) ? T(1) - act6 : act6;
-      }
-      acc += (double)(Wv[s] * zd);
+      acc += (double)(Wv[s] * (Z / den * scale));
     }
   }
   return acc;

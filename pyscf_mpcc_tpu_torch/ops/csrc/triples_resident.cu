@@ -43,9 +43,10 @@
 //         hi and lo, 32 with hi alone: 36 KB either way).
 // Each pass adds its product into W through the perm's index map, rows
 // of the first perm and of the second in two passes so that no element
-// is written twice at once.  The w2 dots, V, Z and the energy are the
-// device code of triples_combine.cu (triples_epilogue.cuh).  Each block
-// writes one partial energy; the host wrapper sums them in fp64.
+// is written twice at once.  The w2 dots (register-tiled GEMMs on vooo
+// chunks copied in bulk into the freed ring), V, Z and the energy are the
+// device code shared with triples_combine.cu (triples_epilogue.cuh).  Each
+// block writes one partial energy; the host wrapper sums them in fp64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,7 +61,7 @@ using triples::perm_id;
 using triples::perm_of;
 using triples::slot_stride;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = triples::kEpiThreads;   // 512
 constexpr int kBM = 64;       // GEMM rows per pass (two stacked ov blocks)
 constexpr int kPadA = 4;      // row padding of the staged A (FFMA form)
 constexpr int kWgN = 128;     // GEMM columns of one warpgroup (MMA form)
@@ -110,14 +111,7 @@ __host__ __device__ __forceinline__ int pair_id(int r1, int r2) {
   return 2 * r1 + (r2 < r1 ? r2 : r2 - 1);
 }
 
-__host__ __device__ inline long long align128(long long b) {
-  return (b + 127) & ~127LL;
-}
-
-// bytes of the cell's padded W
-__host__ __device__ inline long long w_bytes(int o, int itemsize) {
-  return align128(triples::w_elems(o) * itemsize);
-}
+using triples::w_bytes;
 
 __host__ __device__ inline int stage_bytes(int mode, int itemsize) {
   if (mode != kF32) return kStageBytes;
@@ -132,7 +126,8 @@ __host__ __device__ inline int ring_stages(int o, int itemsize, int mode) {
 }
 
 // dynamic shared memory: padded W, then the ring of the GEMM staging,
-// reused for the six t2 blocks of the w2 dots
+// reused by the epilogue (w2 staging, V-term staging), which takes at
+// least 6 o^2 values: the floor that has set the modes' nocc limits
 __host__ __device__ inline long long smem_bytes(int o, int itemsize,
                                                 int mode) {
   const int s = ring_stages(o, itemsize, mode);
@@ -158,6 +153,7 @@ struct Args {
   const T* t1;       // (K,3,T,o)       [r,z,k] = t1[k,z]
   const T* fvo;      // (K,3,T,o)       [r,z,k] = fvo[z,k]
   const T* eijk;     // (o,o,o)
+  const int* orbits; // (norb,) occupied orbits r0 | r1 << 8 | r2 << 16
   const T* eabc;     // (K,T,T,T)
   const T* wgt;      // (K,T,T,T) degeneracy weights (0 on padded cells)
   const T* act;      // (K,T,T,T) active-virtual products, or null
@@ -572,19 +568,30 @@ resident_kernel(const Args<T> a) {
                                      o, F, q1, q2);
     }
   }
-  // (the last scatter pass ended with a barrier: the staging is free)
-  T* t2s = reinterpret_cast<T*>(scratch);
-  triples::stage_t2zy(cp, t2s, o);
-  __syncthreads();
-  triples::subtract_w2(cp, t2s, Wsm, o);
+  // the epilogue (triples_epilogue.cuh) in the staging area, free since
+  // the last scatter pass ended with a barrier
+  const long long sbytes = smem_bytes(o, sizeof(T), kMode)
+                           - w_bytes(o, sizeof(T));
+  triples::subtract_w2(cp, Wsm, scratch, sbytes, o);
 
   const int S1 = triples::w_s1(o), S0 = triples::w_s0(o);
   auto wval = [&](const int* oc) -> T {
     return Wsm[oc[0] * S0 + oc[1] * S1 + oc[2]];
   };
-  const double acc = triples::orbit_energy(cp, a.eijk, a.actocc, a.act_mode,
-                                           eabc, af, o, threadIdx.x,
-                                           blockDim.x, wval);
+  const int norb = o * (o + 1) * (o + 2) / 6;
+  T* vs = reinterpret_cast<T*>(scratch);
+  double acc;
+  if (triples::vstage_elems(o) * (long long)sizeof(T) <= sbytes) {
+    triples::stage_vterms(cp, vs, o);
+    __syncthreads();
+    acc = triples::orbit_energy<T, true>(cp, vs, a.orbits, norb, a.eijk,
+                                         a.actocc, a.act_mode, eabc, af, o,
+                                         threadIdx.x, blockDim.x, wval);
+  } else {
+    acc = triples::orbit_energy<T, false>(cp, vs, a.orbits, norb, a.eijk,
+                                          a.actocc, a.act_mode, eabc, af, o,
+                                          threadIdx.x, blockDim.x, wval);
+  }
   const double t = triples::block_sum(acc);
   if (threadIdx.x == 0) *out = t * (double)wgt;
 }
@@ -609,7 +616,8 @@ int launch(Args<T> a, int K, void* stream) {
 template <typename T>
 Args<T> make_args(int nt, int o, int F, const void* ptrs, const void* vooo,
                   const void* t2p, const void* oovv, const void* t1,
-                  const void* fvo, const void* eijk, const void* eabc,
+                  const void* fvo, const void* eijk, const void* orbits,
+                  const void* eabc,
                   const void* wgt, const void* act, const void* actocc,
                   int act_mode, void* out) {
   Args<T> a;
@@ -620,6 +628,7 @@ Args<T> make_args(int nt, int o, int F, const void* ptrs, const void* vooo,
   a.t1 = static_cast<const T*>(t1);
   a.fvo = static_cast<const T*>(fvo);
   a.eijk = static_cast<const T*>(eijk);
+  a.orbits = static_cast<const int*>(orbits);
   a.eabc = static_cast<const T*>(eabc);
   a.wgt = static_cast<const T*>(wgt);
   a.act = static_cast<const T*>(act);
@@ -658,16 +667,18 @@ int triples_resident_k_chunk(int mode) {
 }
 
 // ptrs: (K, 18) addresses of the W1 operands (Args::ptrs), float32 in mode
-// f32, tiled bf16 in modes split (hi and lo) and bf16 (hi)
+// f32, tiled bf16 in modes split (hi and lo) and bf16 (hi); orbits: the
+// (o (o+1) (o+2) / 6,) int32 occupied-orbit table
 int triples_resident_f32(int K, int nt, int o, int F, int mode,
                          const void* ptrs, const void* vooo, const void* t2p,
                          const void* oovv, const void* t1, const void* fvo,
-                         const void* eijk, const void* eabc, const void* wgt,
+                         const void* eijk, const void* orbits,
+                         const void* eabc, const void* wgt,
                          const void* act, const void* actocc, int act_mode,
                          void* out, void* stream) {
   const Args<float> a = make_args<float>(nt, o, F, ptrs, vooo, t2p, oovv, t1,
-                                         fvo, eijk, eabc, wgt, act, actocc,
-                                         act_mode, out);
+                                         fvo, eijk, orbits, eabc, wgt, act,
+                                         actocc, act_mode, out);
   if (mode == kF32) return launch<float, kF32>(a, K, stream);
   if (mode == kSplit) return launch<float, kSplit>(a, K, stream);
   if (mode == kBf16) return launch<float, kBf16>(a, K, stream);
@@ -678,13 +689,14 @@ int triples_resident_f32(int K, int nt, int o, int F, int mode,
 int triples_resident_f64(int K, int nt, int o, int F, int mode,
                          const void* ptrs, const void* vooo, const void* t2p,
                          const void* oovv, const void* t1, const void* fvo,
-                         const void* eijk, const void* eabc, const void* wgt,
+                         const void* eijk, const void* orbits,
+                         const void* eabc, const void* wgt,
                          const void* act, const void* actocc, int act_mode,
                          void* out, void* stream) {
   if (mode != kF32) return (int)cudaErrorInvalidValue;
   const Args<double> a = make_args<double>(nt, o, F, ptrs, vooo, t2p, oovv,
-                                           t1, fvo, eijk, eabc, wgt, act,
-                                           actocc, act_mode, out);
+                                           t1, fvo, eijk, orbits, eabc, wgt,
+                                           act, actocc, act_mode, out);
   return launch<double, kF32>(a, K, stream);
 }
 

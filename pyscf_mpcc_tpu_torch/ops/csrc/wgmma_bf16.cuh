@@ -1,6 +1,6 @@
-// Hopper warpgroup MMA (wgmma) on bf16 operands in shared memory, and the
-// bulk copies (TMA engine, mbarrier completion) that stage operands; used
-// by triples_resident.cu.
+// Hopper warpgroup MMA (wgmma) on bf16 operands in shared memory, used by
+// triples_resident.cu; the bulk copies (TMA engine, mbarrier completion)
+// that stage its operands are those of bulk_copy.cuh.
 //
 // Layout (PTX ISA "Shared Memory Matrix Layout", no swizzle): an operand
 // tile is made of core matrices of 8 rows of 16 bytes (8 bf16), each
@@ -27,11 +27,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace wgmma {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+using bulk::smem_u32;
 
 // matrix descriptor of a no-swizzle tile at shared address addr
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
@@ -51,9 +51,7 @@ template <int N>
 __device__ __forceinline__ void wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+using bulk::fence_proxy_async;
 
 // keeps the compiler from moving accesses of r across this point (around
 // the asynchronous MMA, whose register operands it cannot see)
@@ -103,48 +101,11 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// ---------------------------------------------------------------------------
-// Bulk copies global -> shared on the TMA engine (cp.async.bulk), whose
-// completion is counted in bytes by an mbarrier: one thread calls
-// mbar_expect_tx with the bytes of a batch and issues its copies; every
-// thread that reads the data first waits on the barrier's phase.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-// makes initialised barriers visible to the copy engine
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// arrive (the barrier counts one) and expect bytes more of copies
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  }
-}
-// bytes (a multiple of 16; both addresses 16-byte aligned) from src to dst
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+// the bulk copies with mbarriers (bulk_copy.cuh), under this namespace too
+using bulk::bulk_copy;
+using bulk::mbar_expect_tx;
+using bulk::mbar_init;
+using bulk::mbar_init_fence;
+using bulk::mbar_wait;
 
 }  // namespace wgmma

@@ -44,12 +44,43 @@ W_PLAN = {
     (2, 1, 0): dict(t2="kj", order="t2_first", swap=False),
 }
 
-# kernel launches made by the wrappers (CUDA tensors only)
+# kernel launches made by the wrappers (CUDA tensors only); the profile
+# form (tile_energy_fused_profile) counts in its own
 launch_count = 0
+profile_launch_count = 0
+# phases of a cell in the profile form (enum Phase of triples_combine.cu)
+PHASES = ("setup", "w_build", "t2_staging", "w2_dots", "v_staging",
+          "orbit", "block_sum")
+# the profile form's variants (enum Variant bits): the other w2 form than
+# the kernel's (DMMA <-> FFMA); the W build by bulk copies into a ring of
+# 16 KB or 32 KB stages; the w2 fragments of vooo staged in shared memory
+# by bulk copies
+VARIANTS = {"w2_other_form": 1, "w_build_bulk_ring": 2,
+            "w_build_bulk_ring_32k": 6, "w2_vooo_bulk_staged": 8}
 
 _ACT_MODES = {None: 0, "exclude_active": 1, "only_active": 2}
 # dynamic shared memory one block may use on Hopper (227 KB)
 _SMEM_MAX = 232448
+
+
+_ORBITS = {}
+
+
+def orbit_table(o, device):
+    """The occupied orbits {sigma(i,j,k)} as one int32 per orbit,
+    r0 | r1 << 8 | r2 << 16 with r0 >= r1 >= r2, r0 slowest: the
+    (o (o+1) (o+2) / 6,) table of the kernels' orbit phase, built once per
+    (nocc, device)."""
+    key = (o, str(torch.device(device)))
+    if key not in _ORBITS:
+        if not 0 < o < 256:
+            raise ValueError(f"nocc={o}: the orbit table packs 8 bits a "
+                             "slot")
+        codes = [r0 | r1 << 8 | r2 << 16 for r0 in range(o)
+                 for r1 in range(r0 + 1) for r2 in range(r1 + 1)]
+        _ORBITS[key] = torch.tensor(codes, dtype=torch.int32,
+                                    device=device)
+    return _ORBITS[key]
 
 
 def _check_precision(precision):
@@ -180,21 +211,32 @@ def _lib():
     from pyscf_mpcc_tpu_torch.ops import _build
     lib = _build.load("triples_combine")
     ptr = ctypes.c_void_p
-    for fn in (lib.triples_combine_f32, lib.triples_combine_f64):
-        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.POINTER(ptr)]
-                       + [ptr] * 10 + [ctypes.c_int, ptr, ptr])
-        fn.restype = ctypes.c_int
+    # (K, T, o, nsplit, staged, w, vooo, t2p, oovv, t1, fvo, eijk, orbits,
+    # gabc, evt, actv, actocc, act_mode, out[, prof], stream)
+    args = ([ctypes.c_int] * 5 + [ctypes.POINTER(ptr)] + [ptr] * 11
+            + [ctypes.c_int, ptr])
+    for tag in ("", "profile_"):
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"triples_combine_{tag}{dt}")
+            fn.argtypes = args + ([ptr, ctypes.c_int, ptr] if tag
+                                  else [ptr])
+            fn.restype = ctypes.c_int
     lib.triples_combine_threads.argtypes = []
     lib.triples_combine_threads.restype = ctypes.c_int
-    lib.triples_combine_staged_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for fn in (lib.triples_combine_staged_bytes, lib.triples_combine_v_staged):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.triples_combine_staged_bytes.restype = ctypes.c_longlong
+    lib.triples_combine_v_staged.restype = ctypes.c_int
+    lib.triples_combine_smem_max.argtypes = []
+    lib.triples_combine_smem_max.restype = ctypes.c_longlong
     return lib
 
 
 def _launch(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t, fvoc_t, eijk,
-            gabc, evt, actv, actocc, act_mode):
-    """Check the K-stacked inputs and launch the kernel; (K,) fp64."""
-    global launch_count
+            gabc, evt, actv, actocc, act_mode, profile=False, variant=0):
+    """Check the K-stacked inputs and launch the kernel; (K,) fp64, and
+    with profile the (K, T, T, T, 8) int64 phase clocks of every cell."""
+    global launch_count, profile_launch_count
     _check_act(act_mode, actv, actocc)
     if t2p.dim() != 7:
         raise ValueError(f"t2p must be (K,3,3,T,T,o,o), got "
@@ -236,7 +278,8 @@ def _launch(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t, fvoc_t, eijk,
     # W of one cell in shared memory when it fits (fp32 up to nocc=36,
     # fp64 up to 28); otherwise the unstaged form, whose orbits may be
     # split over several blocks per cell to fill the card
-    staged = lib.triples_combine_staged_bytes(o, dtype.itemsize) <= _SMEM_MAX
+    staged = (lib.triples_combine_staged_bytes(o, dtype.itemsize)
+              <= lib.triples_combine_smem_max())
     nsplit = 1
     if not staged:
         threads = lib.triples_combine_threads()
@@ -246,22 +289,31 @@ def _launch(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t, fvoc_t, eijk,
                             -(-4 * sms // (K * T ** 3))))
     out = torch.empty((K, T, T, T, nsplit), dtype=torch.float64, device=dev)
     wptr = (ctypes.c_void_p * 6)(*[w.data_ptr() for w in w_list])
-    fn = (lib.triples_combine_f32 if dtype == torch.float32
-          else lib.triples_combine_f64)
+    tag = "profile_" if profile else ""
+    fn = getattr(lib, f"triples_combine_{tag}"
+                 f"{'f32' if dtype == torch.float32 else 'f64'}")
+    prof = (torch.zeros((K, T, T, T, len(PHASES) + 1), dtype=torch.int64,
+                        device=dev) if profile else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(K, T, o, nsplit, int(staged), wptr, vooo_t.data_ptr(),
                  t2p.data_ptr(), oovv_t.data_ptr(), t1_t.data_ptr(),
                  fvo_t.data_ptr(),
-                 eijk.data_ptr(), gabc.data_ptr(), evt.data_ptr(),
+                 eijk.data_ptr(), orbit_table(o, dev).data_ptr(),
+                 gabc.data_ptr(), evt.data_ptr(),
                  actv.data_ptr() if act_mode is not None else None,
                  actocc.data_ptr() if act_mode is not None else None,
-                 _ACT_MODES[act_mode], out.data_ptr(), stream)
+                 _ACT_MODES[act_mode], out.data_ptr(),
+                 *((prof.data_ptr(), variant) if profile else ()), stream)
     if err != 0:
         raise RuntimeError(f"triples_combine kernel launch failed: CUDA "
                            f"error {err}")
+    e = out.reshape(K, -1).sum(1)
+    if profile:
+        profile_launch_count += 1
+        return e, prof
     launch_count += 1
-    return out.reshape(K, -1).sum(1)
+    return e
 
 
 def _check_options(interpret, kern_precision, flat):
@@ -289,6 +341,25 @@ def tile_energy_fused_chunk(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t,
     if t2p.device.type == "cpu":
         return tile_energy_fused_reference_chunk(*args)
     return _launch(*args)
+
+
+def tile_energy_fused_profile(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t,
+                              t1c_t, fvoc_t, eijk, gabc, evt, actv=None,
+                              actocc=None, act_mode=None, variant=0):
+    """The kernel's profile form on one tile (CUDA tensors only): the
+    tile energy (0-dim fp64) and a (T, T, T, 8) int64 tensor of each
+    cell's SM clocks per phase (PHASES order) and in all (last column);
+    cells of weight zero stay 0.  variant: bits of VARIANTS, the kernel's
+    other choices (staged form only).  A measurement aid; no engine calls
+    it."""
+    if t2p.device.type != "cuda":
+        raise ValueError("the profile form runs on a CUDA device only")
+    e, prof = _launch(
+        [w[None] for w in w_list], vooo_t[None], t2p[None], oovv_t[None],
+        t1_t[None], fvo_t[None], t1c_t[None], fvoc_t[None], eijk, gabc[None],
+        evt[None], None if actv is None else actv[None], actocc, act_mode,
+        profile=True, variant=variant)
+    return e[0], prof[0]
 
 
 def tile_energy_fused(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t,

@@ -40,7 +40,8 @@ import ctypes
 import torch
 
 from pyscf_mpcc_tpu_torch.ops.triples_combine import (
-    _ACT_MODES, _SMEM_MAX as _SMEM_BLOCK, PAIRS as PAIRS9, PERMS)
+    _ACT_MODES, _SMEM_MAX as _SMEM_BLOCK, PAIRS as PAIRS9, PERMS,
+    orbit_table)
 
 # ordered (x, y) role pairs consumed by the W1 dots / ov blocks; the
 # t2p/oovv stacks are indexed by all ordered role pairs, PAIRS9
@@ -226,7 +227,7 @@ def _lib():
     lib = _build.load("triples_resident")
     ptr = ctypes.c_void_p
     for fn in (lib.triples_resident_f32, lib.triples_resident_f64):
-        fn.argtypes = ([ctypes.c_int] * 5 + [ptr] * 11
+        fn.argtypes = ([ctypes.c_int] * 5 + [ptr] * 12
                        + [ctypes.c_int, ptr, ptr])
         fn.restype = ctypes.c_int
     lib.triples_resident_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -337,7 +338,8 @@ def _launch(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t, eijk, eabc3, wgt3,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(K, T, o, F, MODES[mode], ptrs.data_ptr(), vooo_t.data_ptr(),
                  t2p.data_ptr(), oovv_t.data_ptr(), t1_t.data_ptr(),
-                 fvo_t.data_ptr(), eijk.data_ptr(), eabc3.data_ptr(),
+                 fvo_t.data_ptr(), eijk.data_ptr(),
+                 orbit_table(o, dev).data_ptr(), eabc3.data_ptr(),
                  wgt3.data_ptr(),
                  act3.data_ptr() if act_mode is not None else None,
                  actocc.data_ptr() if act_mode is not None else None,

@@ -149,8 +149,9 @@ def test_tensor_core_modes_per_tile_pointers(cuda, mode):
 
 
 # fp32 mode f32 at nocc 17 (rows of B not 16-byte aligned: copied by the
-# threads), 32 (bulk copies, two stages) and 36 (one stage)
-@pytest.mark.parametrize("nocc", [17, 32, 36])
+# threads), 32 (bulk copies, two stages), 33 (the epilogue's two w2 column
+# blocks) and 36 (one stage)
+@pytest.mark.parametrize("nocc", [17, 32, 33, 36])
 def test_f32_fp32_nocc(cuda, nocc):
     args, _ = _chunk(nocc, 4, 23, cuda, torch.float32, 2, [1, 2])
     stages = tr._lib().triples_resident_stages(nocc, 4, 0)

@@ -232,3 +232,346 @@ def test_pinned_e_t():
     for engine in ("xla", "fused", "resident"):
         et = ccsd_t.kernel(cc.t1, cc.t2, cc.eris, tile=8, engine=engine)
         assert abs(et - E_T_REF) < 1e-10
+
+
+# --------------------------------------------------------------------------
+# The combine kernel's index maps (csrc/triples_combine.cu and
+# triples_epilogue.cuh), transliterated to numpy: the W build from the
+# streams' o^2 chunks, the w2 GEMM's chunks and 4 x 4 thread tiles, the
+# V-term staging and the orbit table.  A CUDA kernel cannot run here, so
+# its arithmetic is held to the plain version through this copy.
+# --------------------------------------------------------------------------
+
+EPI_THREADS, SMEM_DYN_MAX, STAGE_TARGET, RING_MAX = 512, 232448 - 1024, \
+    16384, 6
+
+
+def _perm_of(q):
+    return tc.PERMS[q]
+
+
+def _w_strides(o):
+    return o * (o + 1) + 1, o + 1, 1           # w_s0, w_s1, 1
+
+
+def _slot(s, o):
+    return _w_strides(o)[s]
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _w2_plan(o, itemsize, sbytes):
+    vn = 16 // itemsize
+    kf, kd, bn, ncb = (_round_up(o, vn), _round_up(o, 4 * vn),
+                       _round_up(o, 8), -(-o // 32))
+    b_bytes = _round_up(max(kf * bn * itemsize,
+                            kd * (bn + 4 // vn) * 8), 16)
+    row = kd * itemsize
+    full = min(EPI_THREADS // 32 // ncb * 16, _round_up(o * o, 64))
+    avail = sbytes - b_bytes
+    if avail >= 2 * full * row:
+        nb, rb = 2, full
+    else:
+        nb, rb = 1, min(avail // row // 64 * 64, full)
+    return dict(kf=kf, kd=kd, bn=bn, ncb=ncb, rb=rb, nb=nb,
+                b_bytes=b_bytes, a_bytes=rb * row)
+
+
+def _scratch_bytes(o, itemsize):
+    chunk = o * o * itemsize
+    small = _w2_plan(o, itemsize, 0)
+    floor = max(6 * chunk, small["b_bytes"] + 64 * small["kd"] * itemsize)
+    big = _w2_plan(o, itemsize, 1 << 40)
+    want = max(big["b_bytes"] + 2 * big["a_bytes"],
+               _vstage_elems(o) * itemsize)
+    w_bytes = _round_up(o * _w_strides(o)[0] * itemsize, 128)
+    want = min(want, SMEM_DYN_MAX - w_bytes)
+    return _round_up(max(want, floor), 16)
+
+
+def _vstage_elems(o):
+    return 12 * o * (o + 1) + 12 * o
+
+
+def _stream_maps(q, o):
+    """(s_c, s_u) of build_w: chunk c, row u, column v of stream q land
+    at W[c * s_c + u * s_u + v]."""
+    p0, p1, p2 = _perm_of(q)
+    si, sj, sk = _slot(p0, o), _slot(p1, o), _slot(p2, o)
+    if q < 4:
+        return si, (sk if q & 1 else sj)
+    return (sk if q & 1 else sj), (sj if q & 1 else sk)
+
+
+def _build_w_writes(o, itemsize, sbytes):
+    """Per stream, the W offsets build_w_ring writes, in thread order,
+    from its G / ring / row-step mapping."""
+    chunk = o * o * itemsize
+    G = min(max(STAGE_TARGET // chunk, 1), o)
+    while G > 1 and G * chunk > sbytes:
+        G -= 1
+    spq = -(-o // G)
+    rstep = EPI_THREADS // o
+    out = {q: [] for q in range(6)}
+    for st in range(6 * spq):
+        q, c0 = st // spq, (st % spq) * G
+        cnt = min(G, o - c0)
+        s_c, s_u = _stream_maps(q, o)
+        for tid in range(rstep * o):
+            v, c, u = tid % o, c0, tid // o
+            for R in range(tid // o, cnt * o, rstep):
+                while u >= o:
+                    u -= o
+                    c += 1
+                out[q].append(c * s_c + u * s_u + v)
+                u += rstep
+    return out
+
+
+def _w2_cover(o, itemsize, sbytes, dmma):
+    """(perm, row, col) products that subtract_w2's thread tiles (FFMA)
+    or warp fragments (DMMA) subtract from W; every read of the staged
+    operands checked to lie inside its buffer."""
+    pl = _w2_plan(o, itemsize, sbytes)
+    nch = -(-o * o // pl["rb"])
+    nrw = EPI_THREADS // 32 // pl["ncb"]
+    seen = []
+    for n in range(6 * nch):
+        q, r0 = n // nch, (n % nch) * pl["rb"]
+        rows = min(pl["rb"], o * o - r0)
+        for warp in range(EPI_THREADS // 32):
+            cb, rw = warp % pl["ncb"], warp // pl["ncb"]
+            nct = min(4, (o - 32 * cb + 7) // 8)
+            for lane in range(32):
+                rg, cg, g, t = lane >> 3, lane & 7, lane >> 2, lane & 3
+                col0 = 32 * cb + 4 * cg
+                start = 64 * (rw >> 2) + 2 * (rw & 3) if dmma else rw * 16
+                for rb0 in range(start, rows, nrw * 16):
+                    if dmma:
+                        assert rb0 + 8 * g + 1 < pl["rb"]
+                        assert (32 * cb + 8 * (nct - 1) + g
+                                < pl["bn"] + 4 * itemsize // 16)
+                        for mi in range(2):
+                            r = rb0 + 8 * g + mi
+                            seen += [(q, r0 + r, 32 * cb + 8 * j + 2 * t + e)
+                                     for j in range(nct) for e in range(2)
+                                     if r < rows
+                                     and 32 * cb + 8 * j + 2 * t + e < o]
+                        continue
+                    if col0 >= o:
+                        continue
+                    assert col0 + 3 < pl["bn"]
+                    for i in range(4):
+                        r = rb0 + 4 * i + rg
+                        assert r < pl["rb"]          # inside the buffer
+                        if r < rows:
+                            seen += [(q, r0 + r, col0 + j) for j in range(4)
+                                     if col0 + j < o]
+    return seen
+
+
+def _dmma_banks(o, itemsize):
+    """Bank conflicts of the DMMA fragments' shared loads at step s: B
+    (doubles at row stride bn + 4 / VN, lane (g, t) at row VN t + s) must
+    hit 16 distinct banks pairs a half-warp; A (16-byte vectors of row g
+    at column VN t, row stride o or kd) at most two ways a quarter-warp."""
+    pl = _w2_plan(o, itemsize, 1 << 40)
+    vn = 16 // itemsize
+    bsd = pl["bn"] + 4 // vn
+    for s in range(vn):
+        b = [(((lane & 3) * vn + s) * bsd + (lane >> 2)) * 2 % 32
+             for lane in range(16)]
+        if len(set(b)) != 16:
+            return False
+    for stride in {o if o % (4 * vn) == 0 else pl["kd"]}:
+        for quarter in range(4):
+            groups = [((lane >> 2) * 8 * stride + vn * (lane & 3))
+                      * itemsize // 16 % 8 for lane in range(8 * quarter,
+                                                             8 * quarter + 8)]
+            if max(groups.count(x) for x in groups) > 2:
+                return False
+    if o == 32:      # the W subtract of a fragment: 32 distinct banks
+        s0, s1, _ = _w_strides(o)
+        for q in range(6):
+            p0, p1, p2 = _perm_of(q)
+            si, sj, sk = _slot(p0, o), _slot(p1, o), _slot(p2, o)
+            for rw in range(16):
+                rb0 = 64 * (rw >> 2) + 2 * (rw & 3)
+                for mi, j, e in ((0, 0, 0), (1, 3, 1)):
+                    banks = {((rb0 + 8 * (ln >> 2) + mi) // o * si
+                              + (rb0 + 8 * (ln >> 2) + mi) % o * sj
+                              + (8 * j + 2 * (ln & 3) + e) * sk) * itemsize
+                             // 4 % 32 for ln in range(32)}
+                    if itemsize == 4 and len(banks) != 32:
+                        return False
+    return True
+
+
+@pytest.mark.parametrize("itemsize,o", [(4, 5), (4, 8), (4, 17), (4, 32),
+                                        (4, 33), (4, 36), (8, 7), (8, 28)])
+def test_combine_kernel_index_maps_cover_once(itemsize, o):
+    """At the kernel's real shapes: build_w writes every W element once
+    per stream, and the w2 thread tiles cover every product once."""
+    sb = _scratch_bytes(o, itemsize)
+    w_bytes = _round_up(o * _w_strides(o)[0] * itemsize, 128)
+    assert sb >= 6 * o * o * itemsize and w_bytes + sb <= SMEM_DYN_MAX
+    s0, s1, _ = _w_strides(o)
+    canon = sorted(i * s0 + j * s1 + k for i in range(o) for j in range(o)
+                   for k in range(o))
+    for q, offs in _build_w_writes(o, itemsize, sb).items():
+        assert sorted(offs) == canon, q
+    for dmma in (False, True):
+        seen = _w2_cover(o, itemsize, sb, dmma)
+        assert len(seen) == len(set(seen)) == 6 * o ** 3
+    assert _dmma_banks(o, itemsize)
+
+
+def test_combine_kernel_nocc_forms():
+    """The staged range and the V-staging range of the kernel's forms
+    (the module comment of triples_combine.cu)."""
+    def staged(o, isz):
+        w_bytes = _round_up(o * _w_strides(o)[0] * isz, 128)
+        return w_bytes + _scratch_bytes(o, isz) <= SMEM_DYN_MAX
+
+    def vstaged(o, isz):
+        return _vstage_elems(o) * isz <= _scratch_bytes(o, isz)
+
+    assert [staged(o, 4) for o in (36, 37)] == [True, False]
+    assert [staged(o, 8) for o in (28, 29)] == [True, False]
+    assert [vstaged(o, 4) for o in (34, 35)] == [True, False]
+    assert [vstaged(o, 8) for o in (26, 27)] == [True, False]
+
+
+def test_orbit_table_matches_enumeration():
+    for o in (1, 2, 5, 13, 32, 36):
+        t = tc.orbit_table(o, CPU).numpy()
+        r = np.stack([t & 255, (t >> 8) & 255, t >> 16], 1)
+        brute = [(i, j, k) for i in range(o) for j in range(o)
+                 for k in range(o) if i >= j >= k]
+        assert len(t) == o * (o + 1) * (o + 2) // 6
+        assert sorted(map(tuple, r.tolist())) == sorted(brute)
+        assert tc.orbit_table(o, CPU) is tc.orbit_table(o, CPU)   # cached
+
+
+def _combine_transliteration(args, itemsize=8):
+    """The tile energy by the kernel's index maps (staged form), numpy."""
+    w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t = args[:6]
+    eijk, gabc, evt = args[8:11]
+    w_flat = [convert.to_numpy(w).reshape(-1) for w in w_list]
+    vooo, t2p, oovv = (convert.to_numpy(x) for x in (vooo_t, t2p, oovv_t))
+    t1 = convert.to_numpy(t1_t).reshape(3, -1, vooo.shape[-1])
+    fvo = convert.to_numpy(fvo_t).reshape(t1.shape)
+    eijk, gabc, evt = (convert.to_numpy(x) for x in (eijk, gabc, evt))
+    T, o = t2p.shape[2], t2p.shape[-1]
+    oo = o * o
+    s0, s1, _ = _w_strides(o)
+    sb = _scratch_bytes(o, itemsize)
+    pl = _w2_plan(o, itemsize, sb)
+    orbits = tc.orbit_table(o, CPU).numpy()
+    total = 0.0
+    for A in range(T):
+        for B in range(T):
+            for C in range(T):
+                ga, gb, gc = gabc[0, A], gabc[1, B], gabc[2, C]
+                wgt = (1.0 if ga > gb > gc else 1 / 6 if ga == gb == gc
+                       else 0.5 if ga >= gb >= gc else 0.0)
+                if wgt == 0.0:
+                    continue
+                v = (A, B, C)
+                eabc = evt[0, A] + evt[1, B] + evt[2, C]
+                W = np.full(o * s0, np.nan)
+                blk = o * (o + 1)
+                vs = np.full(_vstage_elems(o), np.nan)
+                ii, jj, kk = np.meshgrid(*[np.arange(o)] * 3, indexing="ij")
+                Wd = 0.0
+                for q in range(6):
+                    p0, p1, p2 = _perm_of(q)
+                    x, y, z = v[p0], v[p1], v[p2]
+                    wbase = ((x * T + y) * o * T * oo + z * oo if q < 4
+                             else ((z * T + x) * T + y) * oo * o)
+                    s_c, s_u = _stream_maps(q, o)
+                    for c in range(o):              # build_w_ring
+                        src = wbase + c * (T * oo if q < 4 else oo)
+                        ch = w_flat[q][src:src + oo].reshape(o, o)
+                        off = (c * s_c + np.arange(o)[:, None] * s_u
+                               + np.arange(o)[None, :])
+                        W[off] = ch if q == 0 else W[off] + ch
+                    # build_w_direct: (i, j, k) of stream q
+                    off = (ii * T * oo + jj * o if q < 2 else
+                           jj * T * oo + ii * o if q < 4 else
+                           (ii * o + jj) * o) + kk
+                    Wd = Wd + w_flat[q][wbase + off]
+                    for n, blk_q in ((q, oovv[p0, p1, x, y]),
+                                     (6 + q, t2p[p1, p0, y, x])):
+                        rows_ = vs[n * blk:(n + 1) * blk].reshape(o, o + 1)
+                        rows_[:, :o] = blk_q
+                    vs[12 * blk + q * o:12 * blk + (q + 1) * o] = t1[p2, z]
+                    vs[12 * blk + (6 + q) * o:
+                       12 * blk + (7 + q) * o] = fvo[p2, z]
+                np.testing.assert_allclose(
+                    W[ii * s0 + jj * s1 + kk], Wd, rtol=1e-13, atol=1e-13)
+                for q in range(6):                  # subtract_w2
+                    p0, p1, p2 = _perm_of(q)
+                    si, sj, sk = _slot(p0, o), _slot(p1, o), _slot(p2, o)
+                    Bs = np.zeros((pl["kd"], pl["bn"]))
+                    Bs[:o, :o] = t2p[p2, p1, v[p2], v[p1]]
+                    va = vooo[p0, v[p0]]
+                    for r0 in range(0, oo, pl["rb"]):
+                        rows = np.arange(r0, min(oo, r0 + pl["rb"]))
+                        Ach = np.zeros((len(rows), pl["kd"]))
+                        Ach[:, :o] = va[rows]
+                        prod = (Ach @ Bs)[:, :o]
+                        i1, j1 = rows // o, rows % o
+                        off = ((i1 * si + j1 * sj)[:, None]
+                               + np.arange(o)[None, :] * sk)
+                        W[off] -= prod
+                acc = 0.0                            # orbit_energy
+                for code in orbits:
+                    r = (code & 255, (code >> 8) & 255, code >> 16)
+                    Wv, Vv = [], []
+                    for s in range(6):
+                        s0_, s1_, s2_ = _perm_of(s)
+                        oc = (r[s0_], r[s1_], r[s2_])
+                        Wc = W[oc[0] * s0 + oc[1] * s1 + oc[2]]
+                        vt = 0.0
+                        for q in range(6):
+                            p0, p1, p2 = _perm_of(q)
+                            ij, k1 = oc[p0] * (o + 1) + oc[p1], oc[p2]
+                            vt += 0.5 * (vs[q * blk + ij]
+                                         * vs[12 * blk + q * o + k1]
+                                         + vs[(6 + q) * blk + ij]
+                                         * vs[12 * blk + (6 + q) * o + k1])
+                        Wv.append(Wc)
+                        Vv.append(Wc + vt)
+                    den = eijk[r[0], r[1], r[2]] - eabc
+                    done = set()
+                    for s in range(6):
+                        qs = _perm_of(s)
+                        e = (r[qs[0]], r[qs[1]], r[qs[2]])
+                        if e in done:
+                            continue
+                        done.add(e)
+
+                        def pid(a, b, c):
+                            return 2 * a + (1 if b > c else 0)
+                        Z = (4 * Vv[s] + Vv[pid(qs[1], qs[2], qs[0])]
+                             + Vv[pid(qs[2], qs[0], qs[1])]
+                             - 2 * (Vv[pid(qs[2], qs[1], qs[0])]
+                                    + Vv[pid(qs[0], qs[2], qs[1])]
+                                    + Vv[pid(qs[1], qs[0], qs[2])]))
+                        acc += Wv[s] * (Z / den)
+                total += acc * wgt
+    return total
+
+
+@pytest.mark.parametrize("tile", [0, 4])
+def test_combine_transliteration_matches_plain(tile):
+    outs, eijk, _ = _prep("df", None)
+    o = outs[tile]
+    args = (*o[:8], eijk, *o[8:10])
+    ref = float(tc.tile_energy_fused_reference(*args))
+    assert abs(ref) > 1e-8
+    np.testing.assert_allclose(_combine_transliteration(args), ref,
+                               rtol=RTOL, atol=ATOL)

@@ -95,6 +95,62 @@ def test_kernel_rejects_bad_input(cuda):
         tc.tile_energy_fused(*out[:8], eijk.cpu(), *out[8:10])
 
 
+# the kernel's forms by nocc (triples_combine.cu): fp32 8 (16-byte
+# vectors, one w2 chunk a perm), 17 (odd: the threads copy the W streams
+# and vooo), 32 (the bench nocc), 33 (two w2 column blocks), 35 (V-term
+# inputs from device memory), 36 (the top of the staged range, one w2
+# buffer); fp64 26 (the top of the V staging), 28 (the top of the staged
+# range).  K = 4 tiles a launch, every act mode.
+@pytest.mark.parametrize("act", [None, "exclude_active", "only_active"])
+@pytest.mark.parametrize("dtype,nocc", [
+    (torch.float32, 8), (torch.float32, 17), (torch.float32, 32),
+    (torch.float32, 33), (torch.float32, 35), (torch.float32, 36),
+    (torch.float64, 26), (torch.float64, 28)])
+def test_kernel_nocc_forms(cuda, dtype, nocc, act):
+    t1, t2, eris = _problem(nocc, 6, 40 + nocc, cuda, dtype)
+    outs, eijk, actocc = _tiles(t1, t2, eris, 2, act is not None)
+    out = ccsd_t.stack_prep(outs[:4])
+    kw = dict(actv=out[10], actocc=actocc, act_mode=act) if act else {}
+    args = (*out[:8], eijk, *out[8:10])
+    staged = tc._lib().triples_combine_staged_bytes(nocc, dtype.itemsize)
+    assert staged <= tc._lib().triples_combine_smem_max()
+    assert tc._lib().triples_combine_v_staged(nocc, dtype.itemsize) == (
+        nocc <= (34 if dtype == torch.float32 else 26))
+    e_k = tc.tile_energy_fused_chunk(*args, **kw)
+    e_p = tc.tile_energy_fused_reference_chunk(*args, **kw)
+    assert torch.isfinite(e_k).all() and e_p.abs().max() > 0
+    if dtype == torch.float64:
+        torch.testing.assert_close(e_k, e_p, rtol=1e-10, atol=1e-14)
+    else:
+        # fp32 on both sides: a masked tile whose energy nearly cancels is
+        # held to the chunk's largest energy
+        torch.testing.assert_close(e_k, e_p, rtol=1e-5,
+                                   atol=1e-5 * float(e_p.abs().max()))
+
+
+# the profile form with each variant (VARIANTS bits: the other w2 form,
+# the W build by a bulk-copy ring of 16 or 32 KB stages, vooo staged by
+# bulk copies) against the plain version, in fp64 at nocc 8 and 26 (o^2
+# not a multiple of 16: the w2 chunks staged by the threads)
+@pytest.mark.parametrize("variant", [0, 1, 2, 6, 8, 9])
+@pytest.mark.parametrize("nocc", [8, 26])
+def test_profile_form_variants(cuda, nocc, variant):
+    t1, t2, eris = _problem(nocc, 6, 2, cuda, torch.float64)
+    outs, eijk, _ = _tiles(t1, t2, eris, 2, False)
+    args = (*outs[3][:8], eijk, *outs[3][8:10])
+    n0 = tc.launch_count
+    e_p, cyc = tc.tile_energy_fused_profile(*args, variant=variant)
+    assert tc.launch_count == n0              # counted apart
+    assert cyc.shape == (2, 2, 2, len(tc.PHASES) + 1)
+    busy = cyc[..., -1] > 0
+    assert busy.any()
+    assert (cyc[..., :-1].sum(-1)[busy] == cyc[..., -1][busy]).all()
+    torch.testing.assert_close(e_p, tc.tile_energy_fused_reference(*args),
+                               rtol=1e-10, atol=1e-14)
+    if variant == 0:      # the kernel's own choices, bit for bit
+        assert e_p.item() == tc.tile_energy_fused(*args).item()
+
+
 def test_unstaged_kernel_large_nocc(cuda):
     # fp64 at nocc=30: the cell's W no longer fits in shared memory, so the
     # kernel runs its unstaged form (orbits split over several blocks)
