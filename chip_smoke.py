@@ -288,30 +288,24 @@ def main():
         share_of_bound=f"{comb_bound[0] / ms_k:.3f}")
     # where a cell's time goes: the kernel's profile form stamps the SM
     # clock at each phase boundary of every cell (a barrier before each
-    # stamp); shares of the summed clocks of the cells of nonzero weight.
-    # The same for the kernel's other choices (VARIANTS: the w2 on the
-    # other of DMMA and FFMA, the W build by the threads' own loads), each
+    # stamp); shares of the summed clocks of the cells of nonzero weight,
     # with the profile form's time per tile
-    splits = {}
-    for vname, var in [("kernel", 0)] + sorted(tc.VARIANTS.items()):
-        e_prof, cyc = tc.tile_energy_fused_profile(*args, variant=var)
-        if not abs(e_prof.item() - e_k) <= RTOL_TILE_FP32 * abs(e_p):
-            raise RuntimeError(f"profile form {vname}: {e_prof.item()!r} "
-                               f"vs kernel {e_k!r}")
-        ms_v = cuda_ms(torch, lambda: tc.tile_energy_fused_profile(
-            *args, variant=var), 10)
-        tot = cyc[..., -1].sum().item()
-        shares = {name: cyc[..., n].sum().item() / tot
-                  for n, name in enumerate(tc.PHASES)}
-        busy = cyc[..., -1][cyc[..., -1] > 0].double()
-        splits[vname] = dict(ms=ms_v, shares=shares)
-        say(1, f"bench tile phase split {vname}", profile_ms=f"{ms_v:.4f}",
-            shares=json.dumps({k: round(v, 4) for k, v in shares.items()}),
-            ms_by_phase=json.dumps({k: round(v * ms_v, 4)
-                                    for k, v in shares.items()}),
-            cells=busy.numel(), clocks_per_cell_mean=f"{busy.mean():.0f}",
-            clocks_per_cell_max=f"{busy.max():.0f}",
-            abs_err=f"{abs(e_prof.item() - e_p):.3e}")
+    e_prof, cyc = tc.tile_energy_fused_profile(*args)
+    if not abs(e_prof.item() - e_k) <= RTOL_TILE_FP32 * abs(e_p):
+        raise RuntimeError(f"profile form: {e_prof.item()!r} vs kernel "
+                           f"{e_k!r}")
+    ms_prof = cuda_ms(torch, lambda: tc.tile_energy_fused_profile(*args), 10)
+    tot = cyc[..., -1].sum().item()
+    shares = {name: cyc[..., n].sum().item() / tot
+              for n, name in enumerate(tc.PHASES)}
+    busy = cyc[..., -1][cyc[..., -1] > 0].double()
+    say(1, "bench tile phase split", profile_ms=f"{ms_prof:.4f}",
+        shares=json.dumps({k: round(v, 4) for k, v in shares.items()}),
+        ms_by_phase=json.dumps({k: round(v * ms_prof, 4)
+                                for k, v in shares.items()}),
+        cells=busy.numel(), clocks_per_cell_mean=f"{busy.mean():.0f}",
+        clocks_per_cell_max=f"{busy.max():.0f}",
+        abs_err=f"{abs(e_prof.item() - e_p):.3e}")
     del args, out
 
     # ---- phase 2: pinned fp64 energies on the card -----------------------

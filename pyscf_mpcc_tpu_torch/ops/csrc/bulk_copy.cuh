@@ -2,8 +2,7 @@
 // completion is counted in bytes by an mbarrier: one thread calls
 // mbar_expect_tx with the bytes of a batch and starts its copies; every
 // thread that reads the data first waits on the barrier's phase.  Used by
-// the (T) tile kernels (triples_combine.cu, triples_resident.cu and the
-// shared epilogue, triples_epilogue.cuh).
+// the resident (T) kernel (triples_resident.cu, through wgmma_bf16.cuh).
 //
 // Shared memory that ordinary stores or loads touched before a bulk copy
 // overwrites it is handed to the copy engine (the async proxy) with
@@ -61,10 +60,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
 }  // namespace bulk

@@ -27,7 +27,7 @@
 // each, a warp's loads covering contiguous runs, and stores W once: no
 // barrier inside, many loads in flight.  (On the card this read the
 // streams about twice as fast as a ring of stages filled by bulk copies on
-// the TMA engine; the profile form still runs that ring for comparison.)
+// the TMA engine: PERF.md, section 6.)
 // The w2 dots (GEMMs on the fp64 tensor cores) and the orbit phase (one
 // thread per occupied orbit from a host-built table, its V-term inputs
 // staged in shared memory where they fit) are the device code of
@@ -49,21 +49,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bulk_copy.cuh"
 #include "triples_epilogue.cuh"
 
 namespace {
 
 using triples::CellPtrs;
+using triples::kSmemDynMax;
 using triples::perm_of;
-using triples::slot_stride;
 
 constexpr int kThreads = triples::kEpiThreads;
-constexpr int kRingMax = 6;                 // W-build ring stages, at most
-constexpr long long kStageTarget = 16384;   // bytes of one ring stage
-// dynamic shared memory a block may use: the opt-in cap of 232,448 bytes
-// less 1 KB for the static shared memory
-constexpr long long kSmemDynMax = 232448 - 1024;
 
 template <typename T>
 struct Args {
@@ -87,18 +81,10 @@ struct Args {
   long long scratch; // shared-memory bytes beside W (staged form)
   double* out;       // (K,T,T,T,nsplit) partial energies
   long long* prof;   // (K,T,T,T,kProfSlots) phase clocks (profile form)
-  int variant;       // profile form: enum Variant bits, else 0
 };
 
-// variants the profile form can time against the kernel's own choices:
-// the other w2 form (triples::kW2Dmma); the W build by bulk copies into a
-// ring of 16 KB stages, or of 32 KB stages; the w2 fragments of vooo
-// staged by bulk copies instead of read from device memory
-enum Variant { kVarW2 = 1, kVarWRing = 2, kVarBigStages = 4,
-               kVarW2Staged = 8 };
-
 // scratch beside W in the staged form: at least 6 o^2 values and the
-// smallest w2 staging; as much as the w2 buffers and the V-term staging
+// smallest w2 staging; as much as the w2 buffer and the V-term staging
 // want where W leaves room
 __host__ __device__ inline long long scratch_bytes(int o, int itemsize) {
   const long long chunk = (long long)o * o * itemsize;
@@ -118,11 +104,10 @@ __host__ __device__ inline long long staged_bytes(int o, int itemsize) {
   return triples::w_bytes(o, itemsize) + scratch_bytes(o, itemsize);
 }
 
-// Profile form: thread 0 adds the SM clocks of each phase of its cell to
+// Profile form: thread 0 writes the SM clocks of each phase of its cell to
 // prof[cell][phase] (a barrier first, so the phase has ended in every
 // warp), and the cell's total to the last slot.
-enum Phase { kSetup, kWBuild, kT2Stage, kW2, kVStage, kOrbit, kSum,
-             kProfSlots = 8 };
+enum Phase { kSetup, kWBuild, kW2, kVStage, kOrbit, kSum, kProfSlots = 7 };
 
 template <bool kProf>
 struct Stamp {
@@ -136,7 +121,7 @@ struct Stamp {
     __syncthreads();
     if (threadIdx.x == 0) {
       const long long now = clock64();
-      p[phase] += now - t;
+      p[phase] = now - t;
       p[kProfSlots - 1] = now - t0;
       t = now;
     }
@@ -181,80 +166,6 @@ __device__ void build_w_direct(const T* const* src, const long long* wbase,
   }
 }
 
-// The same W by bulk copies into a ring of stages (a profile variant).
-// Chunk c of stream q is o^2
-// contiguous values [u][v]: for q < 4 (ov_first) the plane i' = c,
-// [P1][P2]; for q >= 4 (t2_first) the rows P1 = c, [P2][i'].  In both the
-// minor v lands at canonical k (stride 1 in W), and the element goes to
-// W[c * s_c + u * s_u + v].  A stage holds up to G chunks of one stream,
-// so its elements are distinct; stages are separated by barriers.
-template <typename T>
-__device__ void build_w_ring(const T* const* src, const long long* wbase,
-                             T* Wsm, unsigned char* ring, long long sbytes,
-                             uint64_t* bar, int o, int nt,
-                             long long target) {
-  const int oo = o * o, tid = threadIdx.x;
-  const long long chunk = (long long)oo * sizeof(T);
-  int G = (int)(target / chunk);
-  G = G < 1 ? 1 : (G > o ? o : G);
-  while (G > 1 && G * chunk > sbytes) --G;
-  int ns = (int)(sbytes / (G * chunk));
-  ns = ns > kRingMax ? kRingMax : ns;
-  const long long stage = G * chunk;
-  const int spq = (o + G - 1) / G, nst = 6 * spq;
-  bool by_copy = (chunk & 15) == 0;
-#pragma unroll
-  for (int q = 0; q < 6; ++q) by_copy = by_copy && bulk::aligned16(src[q]);
-  // first value of chunk c of stream q
-  auto chunk_ptr = [&](int q, int c) {
-    return src[q] + wbase[q]
-           + (long long)c * (q < 4 ? (long long)nt * oo : (long long)oo);
-  };
-  auto fetch = [&](int st) {
-    const int q = st / spq, c0 = (st - q * spq) * G;
-    const int cnt = min(G, o - c0);
-    unsigned char* dst = ring + (st % ns) * stage;
-    bulk::mbar_expect_tx(&bar[st % ns], (uint32_t)(cnt * chunk));
-    for (int c = 0; c < cnt; ++c)
-      bulk::bulk_copy(dst + c * chunk, chunk_ptr(q, c0 + c),
-                      (uint32_t)chunk, &bar[st % ns]);
-  };
-  if (by_copy && tid == 0)
-    for (int st = 0; st < ns && st < nst; ++st) fetch(st);
-  // thread: column v, rows R0, R0 + rstep, ... of the stage's cnt * o rows
-  const int v = tid % o, R0 = tid / o, rstep = (int)blockDim.x / o;
-  const bool on = R0 < rstep;
-#pragma unroll 1
-  for (int st = 0; st < nst; ++st) {
-    const int q = st / spq, c0 = (st - q * spq) * G;
-    const int cnt = min(G, o - c0);
-    int p0, p1, p2;
-    perm_of(q, p0, p1, p2);
-    const int si = slot_stride(p0, o), sj = slot_stride(p1, o),
-              sk = slot_stride(p2, o);
-    const int s_c = q < 4 ? si : ((q & 1) ? sk : sj);
-    const int s_u = q < 4 ? ((q & 1) ? sk : sj) : ((q & 1) ? sj : sk);
-    const T* sv = reinterpret_cast<const T*>(ring + (st % ns) * stage);
-    if (by_copy) bulk::mbar_wait(&bar[st % ns], (st / ns) & 1);
-    if (on) {
-      int c = c0, u = R0;
-      for (int R = R0; R < cnt * o; R += rstep) {
-        while (u >= o) {
-          u -= o;
-          ++c;
-        }
-        const T x = by_copy ? sv[R * o + v]
-                            : __ldg(chunk_ptr(q, c) + u * o + v);
-        T* w = Wsm + c * s_c + u * s_u + v;
-        *w = q == 0 ? x : *w + x;
-        u += rstep;
-      }
-    }
-    __syncthreads();     // stage consumed, its W elements written
-    if (by_copy && tid == 0 && st + ns < nst) fetch(st + ns);
-  }
-}
-
 template <typename T, bool kStaged, bool kProf>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const Args<T> a) {
@@ -295,7 +206,6 @@ combine_kernel(const Args<T> a) {
   // per-perm inputs of this cell, shared by the block
   __shared__ long long wbase[6];
   __shared__ CellPtrs<T> cp;
-  __shared__ uint64_t ring_bar[kRingMax];
   if (threadIdx.x < 6) {
     const int q = threadIdx.x;
     int p0, p1, p2;
@@ -311,10 +221,6 @@ combine_kernel(const Args<T> a) {
     cp.t1z[q] = a.t1 + ((k * 3 + p2) * Tl + z) * o;
     cp.fvoz[q] = a.fvo + ((k * 3 + p2) * Tl + z) * o;
   }
-  if (kStaged && threadIdx.x == 0) {
-    for (int s = 0; s < kRingMax; ++s) bulk::mbar_init(&ring_bar[s], 1);
-    bulk::mbar_init_fence();
-  }
   __syncthreads();
   stamp(kSetup);
 
@@ -325,21 +231,15 @@ combine_kernel(const Args<T> a) {
     constexpr int VN = triples::Vec<T>::n;
     bool vec = o % VN == 0;
 #pragma unroll
-    for (int q = 0; q < 6; ++q) vec = vec && bulk::aligned16(a.w[q]);
-    if (a.variant & kVarWRing)
-      build_w_ring<T>(a.w, wbase, Wsm, scratch, a.scratch, ring_bar, o, nt,
-                      (a.variant & kVarBigStages) ? 2 * kStageTarget
-                                                  : kStageTarget);
-    else if (vec)
+    for (int q = 0; q < 6; ++q) vec = vec && triples::aligned16(a.w[q]);
+    if (vec)
       build_w_direct<T, VN>(a.w, wbase, Wsm, o, nt);
     else
       build_w_direct<T, 1>(a.w, wbase, Wsm, o, nt);
     __syncthreads();
     stamp(kWBuild);
-    // W -= sum_p P_p w2_p (GEMMs on the fp64 tensor cores or FFMA)
-    triples::subtract_w2(cp, Wsm, scratch, a.scratch, o,
-                         triples::kW2Dmma != bool(a.variant & kVarW2),
-                         a.variant & kVarW2Staged);
+    // W -= sum_p P_p w2_p (GEMMs on the fp64 tensor cores)
+    triples::subtract_w2(cp, Wsm, scratch, a.scratch, o);
     stamp(kW2);
     const int S1 = triples::w_s1(o), S0 = triples::w_s0(o);
     auto wval = [&](const int* oc) -> T {
@@ -364,7 +264,6 @@ combine_kernel(const Args<T> a) {
     for (int e = threadIdx.x; e < 6 * oo; e += blockDim.x)
       t2s[e] = cp.t2zy[e / oo][e % oo];
     __syncthreads();
-    stamp(kT2Stage);
     // each W value where it is needed: its six w1 reads and six w2 dots
     // (each a row of vooo against a staged column)
     auto wval = [&](const int* oc) -> T {
@@ -403,8 +302,7 @@ int launch(int K, int nt, int o, int nsplit, int staged,
            const void* oovv, const void* t1, const void* fvo,
            const void* eijk, const void* orbits, const void* gabc,
            const void* evt, const void* actv, const void* actocc,
-           int act_mode, void* out, void* prof, int variant,
-           void* stream) {
+           int act_mode, void* out, void* prof, void* stream) {
   Args<T> a;
   for (int q = 0; q < 6; ++q) a.w[q] = static_cast<const T*>(w[q]);
   a.vooo = static_cast<const T*>(vooo);
@@ -425,14 +323,14 @@ int launch(int K, int nt, int o, int nsplit, int staged,
   a.scratch = staged ? scratch_bytes(o, sizeof(T)) : 0;
   a.out = static_cast<double*>(out);
   a.prof = static_cast<long long*>(prof);
-  a.variant = variant;
   // staged: W in shared memory, one block per cell; the caller checks
   // that it fits (triples_combine_staged_bytes)
   const long long smem = staged ? staged_bytes(o, sizeof(T))
                                 : 6LL * o * o * sizeof(T);
-  if (smem > kSmemDynMax) return (int)cudaErrorInvalidValue;
-  auto kern = prof ? (staged ? combine_kernel<T, true, true>
-                             : combine_kernel<T, false, true>)
+  // the profile form stamps the phases of one block a cell: staged only
+  if (smem > kSmemDynMax || (prof && !staged))
+    return (int)cudaErrorInvalidValue;
+  auto kern = prof ? combine_kernel<T, true, true>
                    : (staged ? combine_kernel<T, true, false>
                              : combine_kernel<T, false, false>);
   if (smem > 48 * 1024) {
@@ -476,22 +374,21 @@ int triples_combine_v_staged(int o, int itemsize) {
       gabc, evt, actv, actocc, act_mode, out
 
 int triples_combine_f32(COMBINE_ARGS, void* stream) {
-  return launch<float>(COMBINE_PASS, nullptr, 0, stream);
+  return launch<float>(COMBINE_PASS, nullptr, stream);
 }
 int triples_combine_f64(COMBINE_ARGS, void* stream) {
-  return launch<double>(COMBINE_PASS, nullptr, 0, stream);
+  return launch<double>(COMBINE_PASS, nullptr, stream);
 }
 
 // the profile form, a measurement aid that no engine calls: prof is
-// (K,T,T,T,8) int64 zeros that receive each cell's SM clocks per phase
-// (enum Phase) and in all (last slot); variant: enum Variant bits
-int triples_combine_profile_f32(COMBINE_ARGS, void* prof, int variant,
-                                void* stream) {
-  return launch<float>(COMBINE_PASS, prof, variant, stream);
+// (K,T,T,T,7) int64 zeros that receive each cell's SM clocks per phase
+// (enum Phase) and in all (last slot); staged form only, where one block
+// owns a cell
+int triples_combine_profile_f32(COMBINE_ARGS, void* prof, void* stream) {
+  return launch<float>(COMBINE_PASS, prof, stream);
 }
-int triples_combine_profile_f64(COMBINE_ARGS, void* prof, int variant,
-                                void* stream) {
-  return launch<double>(COMBINE_PASS, prof, variant, stream);
+int triples_combine_profile_f64(COMBINE_ARGS, void* prof, void* stream) {
+  return launch<double>(COMBINE_PASS, prof, stream);
 }
 
 #undef COMBINE_ARGS

@@ -12,15 +12,16 @@
 // source occupied indices (i', j', k') land at canonical slots (p0, p1, p2).
 //
 // w2 (subtract_w2): per perm a GEMM C (o^2 x o) = vooo_q (o^2 x o) .
-// t2zy_q (o x o) with K = o.  The o x o block of t2 is staged by the
-// threads.  The kernels run it on the fp64 tensor cores (mma.sync
-// m16n8k16, m16n8k8 in fp64; fp32 operands widened, so never less
-// accurate than fp32), each warp a 16 x 32 tile of C in 4 fragments whose
-// vooo rows it reads with 16-byte loads from device memory (L2).  On the
-// card (bench tile) that beat an FFMA register tile of 4 x 4 a thread and
-// vooo chunks staged by bulk copies, which the profile form still runs for
-// comparison.  The tile is subtracted from W at the perm's permuted
-// positions.
+// t2zy_q (o x o) with K = o, on the fp64 tensor cores (mma.sync m16n8k16
+// with fp32 operands widened, m16n8k8 in fp64; never less accurate than
+// fp32), each warp a 16 x 32 tile of C in 4 fragments.  The o x o block of
+// t2 is staged by the threads in the scratch.  The fragments read vooo
+// rows with 16-byte loads straight from device memory (L2) where o is a
+// multiple of 4 vectors; otherwise the threads stage chunks of vooo rows
+// in the scratch, zero-padded.  The tile is subtracted from W at the
+// perm's permuted positions.  (On the card, bench tile, this beat an FFMA
+// register tile of 4 x 4 a thread and vooo chunks staged by bulk copies:
+// PERF.md, section 6.)
 //
 // Orbit phase (orbit_energy): the energy needs V only at the six
 // permutations of (i, j, k), and e_ijk and the occupied mask are symmetric
@@ -35,12 +36,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bulk_copy.cuh"
-
 namespace triples {
 
 constexpr int kEpiThreads = 512;   // threads of a block of either kernel
-constexpr int kTM = 4, kTN = 4;    // w2 register tile: rows x columns
+// dynamic shared memory a block of either kernel may use: the opt-in cap
+// of 232,448 bytes less 1 KB for the static shared memory
+constexpr long long kSmemDynMax = 232448 - 1024;
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
 
 // 16-byte vector of T
 template <typename T> struct Vec;
@@ -106,60 +111,42 @@ struct CellPtrs {
 // w2 dots
 // ---------------------------------------------------------------------------
 
-// the w2 form the kernels run: DMMA (fp64 tensor cores, fp32 operands
-// widened), or the FFMA register tile (the profile form runs the other)
-constexpr bool kW2Dmma = true;
-
-// The staging of the w2 GEMM in a scratch of sbytes: the t2 block (zero
-// beyond o) at the start, then nb buffers of rb vooo rows.  K runs to kf
-// (o rounded up to a 16-byte vector of T) in the FFMA form, to kd (o
-// rounded up to 4 vectors) in the DMMA form, whose lane t of a fragment
-// takes k = k0 + VN t + s at step s of a block of 4 VN.  A chunk is one
-// bulk copy at row stride o when the form's k depth is o; otherwise the
-// threads copy it at row stride kd, zero beyond o.  The t2 block: values
-// of T at row stride bn (o rounded up to 8) for FFMA; doubles at row
-// stride bn + 4 / VN for DMMA, so that the fragments' 4 k rows fall in
-// distinct banks.  A warp owns 16 rows and 32 columns of C; ncb warps side
-// by side cover the o columns, kEpiThreads / 32 / ncb of them the rows of
-// a pass.
+// The w2 GEMM's use of a scratch of sbytes.  First the t2 block, doubles
+// at row stride bn + 4 / VN (bn: o rounded up to 8), so that the
+// fragments' 4 k rows fall in distinct banks, and kd rows (o rounded up to
+// 4 vectors of T; lane t of a fragment takes k = k0 + VN t + s at step s
+// of a block of 4 VN), zero beyond o.  Then, where the fragments do not
+// read vooo from device memory, a buffer of rb vooo rows at row stride kd.
+// A warp owns 16 rows and 32 columns of C; ncb warps side by side cover
+// the o columns, kEpiThreads / 32 / ncb of them the rows of a pass.
 struct W2Plan {
-  int kf, kd, bn, ncb, rb, nb;
-  long long b_bytes, a_bytes;     // t2 block; one vooo buffer
+  int kd, bn, ncb, rb;
+  long long b_bytes, a_bytes;     // t2 block; vooo buffer
 };
 
 __host__ __device__ inline W2Plan w2_plan(int o, int itemsize,
                                           long long sbytes) {
   W2Plan p;
   const int vn = 16 / itemsize;
-  p.kf = round_up(o, vn);
   p.kd = round_up(o, 4 * vn);
   p.bn = round_up(o, 8);
-  const long long bf = (long long)p.kf * p.bn * itemsize;
-  const long long bd = (long long)p.kd * (p.bn + 4 / vn) * 8;
-  p.b_bytes = ((bf > bd ? bf : bd) + 15) / 16 * 16;
+  p.b_bytes = ((long long)p.kd * (p.bn + 4 / vn) * 8 + 15) / 16 * 16;
   p.ncb = (o + 31) / 32;
   const long long row = (long long)p.kd * itemsize;
   // rows of one pass of all warps, no more than vooo has (rounded to 64,
-  // the row block of four DMMA warps)
-  int full = kEpiThreads / 32 / p.ncb * 4 * kTM;
+  // the row block of four warps), fewer where the scratch is short
+  int full = kEpiThreads / 32 / p.ncb * 16;
   full = full < round_up(o * o, 64) ? full : round_up(o * o, 64);
-  const long long avail = sbytes - p.b_bytes;
-  if (avail >= 2 * full * row) {
-    p.nb = 2;
-    p.rb = full;
-  } else {
-    p.nb = 1;
-    const long long r = avail / row / 64 * 64;
-    p.rb = r < full ? (int)r : full;
-  }
+  const long long r = (sbytes - p.b_bytes) / row / 64 * 64;
+  p.rb = r < full ? (int)r : full;
   p.a_bytes = p.rb * row;
   return p;
 }
 
-// the scratch bytes that stage the w2 GEMM with two full buffers
+// the scratch bytes that stage the w2 GEMM with a full vooo buffer
 __host__ __device__ inline long long w2_bytes_wanted(int o, int itemsize) {
   const W2Plan p = w2_plan(o, itemsize, 1LL << 40);
-  return p.b_bytes + 2 * p.a_bytes;
+  return p.b_bytes + p.a_bytes;
 }
 
 // d += a . b on the fp64 tensor cores: A 16 x 8 (row), B 8 x 8 (col);
@@ -190,221 +177,137 @@ __device__ __forceinline__ void dmma_16816(double (&d)[4],
 // W -= sum_q P_q w2_q with w2_q[i',j',k'] = sum_m vooo[(i',j'), m]
 // t2zy[m, k'].  Chunks of vooo rows run in sequence over the six perms;
 // each writes its W elements once, and chunks are separated by a barrier.
-// Where the form's k depth is o and o^2 a multiple of 16, the fragments
-// are read straight from device memory (L2: a tile's 24 vooo slices are
-// shared by its cells), one chunk a perm; else (or with staged) a chunk
-// is staged in shared memory: by one bulk copy that thread 0 starts and an
-// mbarrier counts, or by the threads (zero-padded) where the rows are not
-// 16-byte multiples.  scratch: sbytes of shared memory (16-byte aligned)
-// that no thread still reads; a barrier precedes the call.
+// Where kd is o and vooo 16-byte aligned, the fragments read vooo straight
+// from device memory (L2: a tile's 24 vooo slices are shared by its
+// cells), one chunk a perm; else the threads stage each chunk in the
+// scratch, zero beyond o.  scratch: sbytes of shared memory (16-byte
+// aligned) that no thread still reads; a barrier precedes the call.
 template <typename T>
 __device__ void subtract_w2(const CellPtrs<T>& c, T* Wsm,
                             unsigned char* scratch, long long sbytes,
-                            int o, bool dmma = kW2Dmma,
-                            bool staged = false) {
+                            int o) {
   constexpr int VN = Vec<T>::n;
   using V = typename Vec<T>::type;
-  __shared__ uint64_t bar[2];
   W2Plan pl = w2_plan(o, sizeof(T), sbytes);
   const int tid = threadIdx.x, oo = o * o;
   const int lane = tid & 31, warp = tid >> 5;
-  T* Bs = reinterpret_cast<T*>(scratch);            // FFMA form
-  double* Bd = reinterpret_cast<double*>(scratch);  // DMMA form
+  double* Bd = reinterpret_cast<double*>(scratch);
+  T* Abuf = reinterpret_cast<T*>(scratch + pl.b_bytes);
   const int bsd = pl.bn + 4 / VN;
-  const int kdep = dmma ? pl.kd : pl.kf;
-  auto abuf = [&](int n) {
-    return reinterpret_cast<T*>(scratch + pl.b_bytes
-                                + (n % pl.nb) * pl.a_bytes);
-  };
-  bool by_copy = kdep == o;
+  bool direct = pl.kd == o;
 #pragma unroll
-  for (int q = 0; q < 6; ++q)
-    by_copy = by_copy && bulk::aligned16(c.vooo[q]);
-  const bool direct = by_copy && oo % 16 == 0 && !staged;
+  for (int q = 0; q < 6; ++q) direct = direct && aligned16(c.vooo[q]);
   if (direct) pl.rb = oo;                  // one chunk a perm
-  by_copy = by_copy && !direct;
   const int nch = (oo + pl.rb - 1) / pl.rb, total = 6 * nch;
-  const int as = (by_copy || direct) ? o : pl.kd;   // row stride of A
-  // thread 0: the copy of chunk n (perm n / nch, rows r0 .. r0 + rows)
-  auto fetch = [&](int n) {
-    const int q = n / nch, r0 = (n - q * nch) * pl.rb;
-    const int rows = min(pl.rb, oo - r0);
-    const uint32_t bytes = (uint32_t)(rows * o * sizeof(T));
-    bulk::mbar_expect_tx(&bar[n % pl.nb], bytes);
-    bulk::bulk_copy(abuf(n), c.vooo[q] + (long long)r0 * o, bytes,
-                    &bar[n % pl.nb]);
-  };
-  if (tid == 0) {
-    bulk::mbar_init(&bar[0], 1);
-    bulk::mbar_init(&bar[1], 1);
-    bulk::mbar_init_fence();
-  }
-  // the scratch was read (and may have been written) by ordinary accesses
-  bulk::fence_proxy_async();
-  __syncthreads();
-  if (by_copy && tid == 0)
-    for (int n = 0; n < pl.nb && n < total; ++n) fetch(n);
+  const int as = direct ? o : pl.kd;       // row stride of A
 
   // warp (rw, cb): rows rw * 16 .. + 15 (+ 16 nrw a pass) of a chunk,
-  // columns 32 cb .. + 31.  FFMA: lane (rg, cg) holds rows 4 i + rg and
-  // columns 4 cg + j.  DMMA: two row tiles of 8, up to four column tiles.
+  // columns 32 cb .. + 31, as two row tiles of 8 and up to four column
+  // tiles of 8
   const int cb = warp % pl.ncb, rw = warp / pl.ncb;
   const int nrw = (int)(blockDim.x >> 5) / pl.ncb;
-  const int rg = lane >> 3, cg = lane & 7;
-  const int col0 = 32 * cb + kTN * cg;
   const int g = lane >> 2, t = lane & 3;
-  const int nct = min(4, (o - 32 * cb + 7) / 8);   // DMMA column tiles
+  const int nct = min(4, (o - 32 * cb + 7) / 8);
 #pragma unroll 1
   for (int n = 0; n < total; ++n) {
     const int q = n / nch, r0 = (n - q * nch) * pl.rb;
     const int rows = min(pl.rb, oo - r0);
-    const T* A = direct ? c.vooo[q] : abuf(n);
+    const T* A = direct ? c.vooo[q] : Abuf;
     if (r0 == 0) {       // the perm's t2 block, zero beyond o
       const T* tz = c.t2zy[q];
-      const int bs = dmma ? bsd : pl.bn;
-      for (int e = tid; e < kdep * bs; e += blockDim.x) {
-        const int m = e / bs, kk = e - m * bs;
-        const T x = (m < o && kk < o) ? tz[m * o + kk] : T(0);
-        if (dmma)
-          Bd[e] = (double)x;
-        else
-          Bs[e] = x;
+      for (int e = tid; e < pl.kd * bsd; e += blockDim.x) {
+        const int m = e / bsd, kk = e - m * bsd;
+        Bd[e] = (m < o && kk < o) ? (double)tz[m * o + kk] : 0.0;
       }
     }
-    if (!by_copy && !direct) {   // the chunk by the threads, zero beyond o
+    if (!direct) {       // the chunk by the threads, zero beyond o
       const T* v = c.vooo[q] + (long long)r0 * o;
-      T* a = abuf(n);
       for (int e = tid; e < rows * pl.kd; e += blockDim.x) {
         const int r = e / pl.kd, m = e - r * pl.kd;
-        a[e] = m < o ? v[r * o + m] : T(0);
+        Abuf[e] = m < o ? v[r * o + m] : T(0);
       }
     }
     __syncthreads();
-    if (by_copy) bulk::mbar_wait(&bar[n % pl.nb], (n / pl.nb) & 1);
     int p0, p1, p2;
     perm_of(q, p0, p1, p2);
     const int si = slot_stride(p0, o), sj = slot_stride(p1, o),
               sk = slot_stride(p2, o);
-    if (dmma) {
-      // warp (rw, cb) holds rows 8 g + mi (mi = 0, 1; the MMA rows g and
-      // g + 8) from base rb0 = 64 (rw / 4) + 2 (rw % 4) (+ 16 nrw a pass):
-      // with W's strides all 1 mod 32, its 32 lanes then subtract into
-      // distinct banks at o = 32.  Lane t takes k = k0 + VN t + u for the
-      // MMA's k slot t + 4 u, so one MMA takes a k block from one 16-byte
-      // vector of each of its two rows.  The A vectors of the next k block
-      // (or of the next row block) load while this one runs.
-      const int rbase = 64 * (rw >> 2) + 2 * (rw & 3);
-      V n0, n1;
-      if (rbase < rows) {
-        const T* ap = A + (rbase + 8 * g) * as + VN * t;
-        n0 = *reinterpret_cast<const V*>(ap);
-        n1 = *reinterpret_cast<const V*>(ap + as);
+    // warp (rw, cb) holds rows 8 g + mi (mi = 0, 1; the MMA rows g and
+    // g + 8) from base rb0 = 64 (rw / 4) + 2 (rw % 4) (+ 16 nrw a pass):
+    // with W's strides all 1 mod 32, its 32 lanes then subtract into
+    // distinct banks at o = 32.  Lane t takes k = k0 + VN t + u for the
+    // MMA's k slot t + 4 u, so one MMA takes a k block from one 16-byte
+    // vector of each of its two rows.  The A vectors of the next k block
+    // (or of the next row block) load while this one runs.
+    const int rbase = 64 * (rw >> 2) + 2 * (rw & 3);
+    V n0, n1;
+    if (rbase < rows) {
+      const T* ap = A + (rbase + 8 * g) * as + VN * t;
+      n0 = *reinterpret_cast<const V*>(ap);
+      n1 = *reinterpret_cast<const V*>(ap + as);
+    }
+    const double* bp = Bd + VN * t * bsd + 32 * cb + g;
+    for (int rb0 = rbase; rb0 < rows; rb0 += nrw * 16) {
+      double acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0;
+      const T* ap = A + (rb0 + 8 * g) * as + VN * t;
+#pragma unroll 1
+      for (int k0 = 0; k0 < pl.kd; k0 += 4 * VN) {
+        T a[2][VN];
+        *reinterpret_cast<V*>(a[0]) = n0;
+        *reinterpret_cast<V*>(a[1]) = n1;
+        const bool more = k0 + 4 * VN < pl.kd;
+        if (more || rb0 + nrw * 16 < rows) {
+          const T* pn = more ? ap + k0 + 4 * VN : ap + nrw * 16 * as;
+          n0 = *reinterpret_cast<const V*>(pn);
+          n1 = *reinterpret_cast<const V*>(pn + as);
+        }
+        const double* br = bp + k0 * bsd;
+        if constexpr (VN == 4) {        // one k16 MMA a column tile
+          double af[8];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            af[2 * u] = (double)a[0][u];
+            af[2 * u + 1] = (double)a[1][u];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j < nct) {
+              const double bf[4] = {br[8 * j], br[bsd + 8 * j],
+                                    br[2 * bsd + 8 * j],
+                                    br[3 * bsd + 8 * j]};
+              dmma_16816(acc[j], af, bf);
+            }
+          }
+        } else {                        // one k8 MMA a column tile
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j < nct)
+              dmma_16808(acc[j], (double)a[0][0], (double)a[1][0],
+                         (double)a[0][1], (double)a[1][1], br[8 * j],
+                         br[bsd + 8 * j]);
+          }
+        }
       }
-      const double* bp = Bd + VN * t * bsd + 32 * cb + g;
-      for (int rb0 = rbase; rb0 < rows; rb0 += nrw * 16) {
-        double acc[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = rb0 + 8 * g + mi;
+        if (r >= rows) continue;
+        const int row = r0 + r, i1 = row / o, j1 = row - i1 * o;
+        T* w = Wsm + i1 * si + j1 * sj;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] = 0.0;
-        const T* ap = A + (rb0 + 8 * g) * as + VN * t;
-#pragma unroll 1
-        for (int k0 = 0; k0 < pl.kd; k0 += 4 * VN) {
-          T a[2][VN];
-          *reinterpret_cast<V*>(a[0]) = n0;
-          *reinterpret_cast<V*>(a[1]) = n1;
-          const bool more = k0 + 4 * VN < pl.kd;
-          if (more || rb0 + nrw * 16 < rows) {
-            const T* pn = more ? ap + k0 + 4 * VN : ap + nrw * 16 * as;
-            n0 = *reinterpret_cast<const V*>(pn);
-            n1 = *reinterpret_cast<const V*>(pn + as);
+          for (int e = 0; e < 2; ++e) {
+            const int col = 32 * cb + 8 * j + 2 * t + e;
+            if (j < nct && col < o) w[col * sk] -= (T)acc[j][2 * mi + e];
           }
-          if constexpr (VN == 4) {      // one k16 MMA a column tile
-            double af[8];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              af[2 * u] = (double)a[0][u];
-              af[2 * u + 1] = (double)a[1][u];
-            }
-            const double* br = bp + k0 * bsd;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (j < nct) {
-                const double bf[4] = {br[8 * j], br[bsd + 8 * j],
-                                      br[2 * bsd + 8 * j],
-                                      br[3 * bsd + 8 * j]};
-                dmma_16816(acc[j], af, bf);
-              }
-            }
-          } else {                      // one k8 MMA a column tile
-            const double* br = bp + k0 * bsd;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (j < nct)
-                dmma_16808(acc[j], (double)a[0][0], (double)a[1][0],
-                           (double)a[0][1], (double)a[1][1], br[8 * j],
-                           br[bsd + 8 * j]);
-            }
-          }
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = rb0 + 8 * g + mi;
-          if (r >= rows) continue;
-          const int row = r0 + r, i1 = row / o, j1 = row - i1 * o;
-          T* w = Wsm + i1 * si + j1 * sj;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = 32 * cb + 8 * j + 2 * t + e;
-              if (j < nct && col < o) w[col * sk] -= (T)acc[j][2 * mi + e];
-            }
-        }
-      }
-    } else {
-      for (int rb0 = rw * 16; col0 < o && rb0 < rows; rb0 += nrw * 16) {
-        T acc[kTM][kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
-        const T* ar = A + (rb0 + rg) * as;
-#pragma unroll 2
-        for (int k0 = 0; k0 < pl.kf; k0 += VN) {
-          T av[kTM][VN], bv[VN][kTN];
-#pragma unroll
-          for (int i = 0; i < kTM; ++i)
-            *reinterpret_cast<V*>(av[i]) =
-                *reinterpret_cast<const V*>(ar + 4 * i * as + k0);
-#pragma unroll
-          for (int u = 0; u < VN; ++u)
-#pragma unroll
-            for (int h = 0; h < kTN / VN; ++h)
-              *reinterpret_cast<V*>(bv[u] + h * VN) =
-                  *reinterpret_cast<const V*>(Bs + (k0 + u) * pl.bn + col0
-                                              + h * VN);
-#pragma unroll
-          for (int u = 0; u < VN; ++u)
-#pragma unroll
-            for (int i = 0; i < kTM; ++i)
-#pragma unroll
-              for (int j = 0; j < kTN; ++j) acc[i][j] += av[i][u] * bv[u][j];
-        }
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const int r = rb0 + 4 * i + rg;
-          if (r >= rows) continue;
-          const int row = r0 + r, i1 = row / o, j1 = row - i1 * o;
-          T* w = Wsm + i1 * si + j1 * sj;
-#pragma unroll
-          for (int j = 0; j < kTN; ++j)
-            if (col0 + j < o) w[(col0 + j) * sk] -= acc[i][j];
-        }
       }
     }
     __syncthreads();     // chunk n consumed, its W elements written
-    if (by_copy && tid == 0 && n + pl.nb < total) fetch(n + pl.nb);
   }
 }
 

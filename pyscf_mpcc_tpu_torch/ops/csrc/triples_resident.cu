@@ -43,9 +43,12 @@
 //         hi and lo, 32 with hi alone: 36 KB either way).
 // Each pass adds its product into W through the perm's index map, rows
 // of the first perm and of the second in two passes so that no element
-// is written twice at once.  The w2 dots (register-tiled GEMMs on vooo
-// chunks copied in bulk into the freed ring), V, Z and the energy are the
-// device code shared with triples_combine.cu (triples_epilogue.cuh).  Each
+// is written twice at once.  The w2 dots, V, Z and the energy are the
+// device code shared with triples_combine.cu (triples_epilogue.cuh): the
+// w2 GEMMs on the fp64 tensor cores (mma.sync m16n8k16 with fp32 operands
+// widened, m16n8k8 in fp64), their vooo fragments read from L2 (staged by
+// the threads where o is not a multiple of 4 vectors) and the t2 block
+// staged in the freed ring, which then holds the V-term inputs.  Each
 // block writes one partial energy; the host wrapper sums them in fp64.
 
 #include <cuda_runtime.h>
@@ -68,9 +71,7 @@ constexpr int kWgN = 128;     // GEMM columns of one warpgroup (MMA form)
 constexpr int kMmaBN = 4 * kWgN;     // GEMM columns per pass (MMA form)
 constexpr int kStageBytes = 36864;   // one ring stage (MMA form)
 constexpr int kMaxStages = 2;        // ring stages, where W leaves room
-// dynamic shared memory a block may use: the opt-in cap of 232,448 bytes
-// less 1 KB for the static shared memory (the wrapper's limit too)
-constexpr long long kSmemDynMax = 232448 - 1024;
+using triples::kSmemDynMax;
 
 enum Mode { kF32 = 0, kSplit = 1, kBf16 = 2 };
 
@@ -648,8 +649,12 @@ extern "C" {
 
 int triples_resident_threads() { return kThreads; }
 
+// dynamic shared-memory bytes a block may use
+long long triples_resident_smem_max() { return kSmemDynMax; }
+
 // dynamic shared-memory bytes for nocc = o, an item size of 4 or 8 and a
-// mode (0 f32, 1 split, 2 bf16); the caller checks it against the limit
+// mode (0 f32, 1 split, 2 bf16); the caller checks it against
+// triples_resident_smem_max()
 long long triples_resident_smem_bytes(int o, int itemsize, int mode) {
   return smem_bytes(o, itemsize, mode);
 }

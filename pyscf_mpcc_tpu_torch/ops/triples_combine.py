@@ -49,18 +49,9 @@ W_PLAN = {
 launch_count = 0
 profile_launch_count = 0
 # phases of a cell in the profile form (enum Phase of triples_combine.cu)
-PHASES = ("setup", "w_build", "t2_staging", "w2_dots", "v_staging",
-          "orbit", "block_sum")
-# the profile form's variants (enum Variant bits): the other w2 form than
-# the kernel's (DMMA <-> FFMA); the W build by bulk copies into a ring of
-# 16 KB or 32 KB stages; the w2 fragments of vooo staged in shared memory
-# by bulk copies
-VARIANTS = {"w2_other_form": 1, "w_build_bulk_ring": 2,
-            "w_build_bulk_ring_32k": 6, "w2_vooo_bulk_staged": 8}
+PHASES = ("setup", "w_build", "w2_dots", "v_staging", "orbit", "block_sum")
 
 _ACT_MODES = {None: 0, "exclude_active": 1, "only_active": 2}
-# dynamic shared memory one block may use on Hopper (227 KB)
-_SMEM_MAX = 232448
 
 
 _ORBITS = {}
@@ -218,8 +209,7 @@ def _lib():
     for tag in ("", "profile_"):
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"triples_combine_{tag}{dt}")
-            fn.argtypes = args + ([ptr, ctypes.c_int, ptr] if tag
-                                  else [ptr])
+            fn.argtypes = args + ([ptr, ptr] if tag else [ptr])
             fn.restype = ctypes.c_int
     lib.triples_combine_threads.argtypes = []
     lib.triples_combine_threads.restype = ctypes.c_int
@@ -233,9 +223,9 @@ def _lib():
 
 
 def _launch(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t, fvoc_t, eijk,
-            gabc, evt, actv, actocc, act_mode, profile=False, variant=0):
+            gabc, evt, actv, actocc, act_mode, profile=False):
     """Check the K-stacked inputs and launch the kernel; (K,) fp64, and
-    with profile the (K, T, T, T, 8) int64 phase clocks of every cell."""
+    with profile the (K, T, T, T, 7) int64 phase clocks of every cell."""
     global launch_count, profile_launch_count
     _check_act(act_mode, actv, actocc)
     if t2p.dim() != 7:
@@ -247,9 +237,6 @@ def _launch(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t, fvoc_t, eijk,
         raise TypeError(f"kernel takes float32 or float64, not {dtype}")
     if len(w_list) != 6:
         raise ValueError("w_list must hold the six W_PLAN streams")
-    if 6 * o * o * dtype.itemsize > _SMEM_MAX:
-        raise ValueError(f"nocc={o} in {dtype}: the six o x o t2 blocks of "
-                         "the w2 dots exceed the 227 KB of shared memory")
     expect = [(w, (K, T, T, o, T, o, o) if W_PLAN[p]["order"] == "ov_first"
                else (K, T, T, T, o, o, o)) for p, w in zip(PERMS, w_list)]
     expect += [(vooo_t, (K, 3, T, o * o, o)), (t2p, (K, 3, 3, T, T, o, o)),
@@ -275,11 +262,19 @@ def _launch(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t, fvoc_t, eijk,
                          f"on {dev}")
 
     lib = _lib()
+    smem_max = lib.triples_combine_smem_max()
+    if 6 * o * o * dtype.itemsize > smem_max:
+        raise ValueError(f"nocc={o} in {dtype}: the six o x o t2 blocks of "
+                         f"the w2 dots exceed the {smem_max} bytes of shared "
+                         "memory a block may use")
     # W of one cell in shared memory when it fits (fp32 up to nocc=36,
     # fp64 up to 28); otherwise the unstaged form, whose orbits may be
     # split over several blocks per cell to fill the card
     staged = (lib.triples_combine_staged_bytes(o, dtype.itemsize)
-              <= lib.triples_combine_smem_max())
+              <= smem_max)
+    if profile and not staged:
+        raise ValueError(f"nocc={o} in {dtype}: the profile form times the "
+                         "staged form only (one block a cell)")
     nsplit = 1
     if not staged:
         threads = lib.triples_combine_threads()
@@ -304,7 +299,7 @@ def _launch(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t, t1c_t, fvoc_t, eijk,
                  actv.data_ptr() if act_mode is not None else None,
                  actocc.data_ptr() if act_mode is not None else None,
                  _ACT_MODES[act_mode], out.data_ptr(),
-                 *((prof.data_ptr(), variant) if profile else ()), stream)
+                 *((prof.data_ptr(),) if profile else ()), stream)
     if err != 0:
         raise RuntimeError(f"triples_combine kernel launch failed: CUDA "
                            f"error {err}")
@@ -345,12 +340,12 @@ def tile_energy_fused_chunk(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t,
 
 def tile_energy_fused_profile(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t,
                               t1c_t, fvoc_t, eijk, gabc, evt, actv=None,
-                              actocc=None, act_mode=None, variant=0):
+                              actocc=None, act_mode=None):
     """The kernel's profile form on one tile (CUDA tensors only): the
-    tile energy (0-dim fp64) and a (T, T, T, 8) int64 tensor of each
+    tile energy (0-dim fp64) and a (T, T, T, 7) int64 tensor of each
     cell's SM clocks per phase (PHASES order) and in all (last column);
-    cells of weight zero stay 0.  variant: bits of VARIANTS, the kernel's
-    other choices (staged form only).  A measurement aid; no engine calls
+    cells of weight zero stay 0.  Staged form only (fp32 up to nocc 36,
+    fp64 up to 28; beyond, it raises).  A measurement aid; no engine calls
     it."""
     if t2p.device.type != "cuda":
         raise ValueError("the profile form runs on a CUDA device only")
@@ -358,7 +353,7 @@ def tile_energy_fused_profile(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t,
         [w[None] for w in w_list], vooo_t[None], t2p[None], oovv_t[None],
         t1_t[None], fvo_t[None], t1c_t[None], fvoc_t[None], eijk, gabc[None],
         evt[None], None if actv is None else actv[None], actocc, act_mode,
-        profile=True, variant=variant)
+        profile=True)
     return e[0], prof[0]
 
 

@@ -40,8 +40,7 @@ import ctypes
 import torch
 
 from pyscf_mpcc_tpu_torch.ops.triples_combine import (
-    _ACT_MODES, _SMEM_MAX as _SMEM_BLOCK, PAIRS as PAIRS9, PERMS,
-    orbit_table)
+    _ACT_MODES, PAIRS as PAIRS9, PERMS, orbit_table)
 
 # ordered (x, y) role pairs consumed by the W1 dots / ov blocks; the
 # t2p/oovv stacks are indexed by all ordered role pairs, PAIRS9
@@ -53,9 +52,6 @@ MODES = {"f32": 0, "split": 1, "bf16": 2}
 # (MmaTile::KC in csrc/triples_resident.cu, checked when it is loaded), the
 # chunk of their tiled operands, to which f is zero-padded
 MMA_KC = {"split": 16, "bf16": 32}
-# dynamic shared memory a block may use, less 1 KB for the kernel's
-# static shared memory
-_SMEM_MAX = _SMEM_BLOCK - 1024
 
 # kernel launches made by the wrappers (CUDA tensors only)
 launch_count = 0
@@ -232,6 +228,8 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.triples_resident_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.triples_resident_smem_bytes.restype = ctypes.c_longlong
+    lib.triples_resident_smem_max.argtypes = []
+    lib.triples_resident_smem_max.restype = ctypes.c_longlong
     lib.triples_resident_stages.argtypes = [ctypes.c_int] * 3
     lib.triples_resident_stages.restype = ctypes.c_int
     lib.triples_resident_k_chunk.argtypes = [ctypes.c_int]
@@ -246,8 +244,8 @@ def _lib():
 
 def _max_nocc(lib, itemsize, mode):
     """The largest nocc whose W and staging fit the shared memory."""
-    o = 1
-    while lib.triples_resident_smem_bytes(o + 1, itemsize, mode) <= _SMEM_MAX:
+    o, top = 1, lib.triples_resident_smem_max()
+    while lib.triples_resident_smem_bytes(o + 1, itemsize, mode) <= top:
         o += 1
     return o
 
@@ -317,12 +315,13 @@ def _launch(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t, eijk, eabc3, wgt3,
             raise ValueError(f"non-contiguous input of shape {shape}")
     lib = _lib()
     need = lib.triples_resident_smem_bytes(o, dtype.itemsize, MODES[mode])
-    if need > _SMEM_MAX:
+    smem_max = lib.triples_resident_smem_max()
+    if need > smem_max:
         top = _max_nocc(lib, dtype.itemsize, MODES[mode])
         raise NotImplementedError(
             f"nocc={o} in {dtype}, mode {mode!r}: the cell's W and the "
             f"GEMM staging need {need} bytes of shared memory, over the "
-            f"{_SMEM_MAX} a block may use ({dtype} in mode {mode!r} runs "
+            f"{smem_max} a block may use ({dtype} in mode {mode!r} runs "
             f"up to nocc {top}); use the fused engine")
     # device addresses of each tile's W1 operands, (K, 18): the hi (or
     # only) parts of the 3 t2 slices and 6 ov blocks, then the lo parts

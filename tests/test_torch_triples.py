@@ -237,13 +237,12 @@ def test_pinned_e_t():
 # --------------------------------------------------------------------------
 # The combine kernel's index maps (csrc/triples_combine.cu and
 # triples_epilogue.cuh), transliterated to numpy: the W build from the
-# streams' o^2 chunks, the w2 GEMM's chunks and 4 x 4 thread tiles, the
-# V-term staging and the orbit table.  A CUDA kernel cannot run here, so
-# its arithmetic is held to the plain version through this copy.
+# streams by vectors of k, the w2 GEMM's chunks and fp64 MMA fragments,
+# the V-term staging and the orbit table.  A CUDA kernel cannot run here,
+# so its arithmetic is held to the plain version through this copy.
 # --------------------------------------------------------------------------
 
-EPI_THREADS, SMEM_DYN_MAX, STAGE_TARGET, RING_MAX = 512, 232448 - 1024, \
-    16384, 6
+EPI_THREADS, SMEM_DYN_MAX = 512, 232448 - 1024
 
 
 def _perm_of(q):
@@ -264,19 +263,21 @@ def _round_up(x, m):
 
 def _w2_plan(o, itemsize, sbytes):
     vn = 16 // itemsize
-    kf, kd, bn, ncb = (_round_up(o, vn), _round_up(o, 4 * vn),
-                       _round_up(o, 8), -(-o // 32))
-    b_bytes = _round_up(max(kf * bn * itemsize,
-                            kd * (bn + 4 // vn) * 8), 16)
+    kd, bn, ncb = _round_up(o, 4 * vn), _round_up(o, 8), -(-o // 32)
+    b_bytes = _round_up(kd * (bn + 4 // vn) * 8, 16)
     row = kd * itemsize
     full = min(EPI_THREADS // 32 // ncb * 16, _round_up(o * o, 64))
-    avail = sbytes - b_bytes
-    if avail >= 2 * full * row:
-        nb, rb = 2, full
-    else:
-        nb, rb = 1, min(avail // row // 64 * 64, full)
-    return dict(kf=kf, kd=kd, bn=bn, ncb=ncb, rb=rb, nb=nb,
-                b_bytes=b_bytes, a_bytes=rb * row)
+    rb = min((sbytes - b_bytes) // row // 64 * 64, full)
+    return dict(kd=kd, bn=bn, ncb=ncb, rb=rb, b_bytes=b_bytes,
+                a_bytes=rb * row)
+
+
+def _w2_rows(o, itemsize, sbytes):
+    """(rows of a chunk, whether the fragments read vooo from device
+    memory): one chunk a perm where kd is o, else the buffer's rows."""
+    pl = _w2_plan(o, itemsize, sbytes)
+    direct = pl["kd"] == o
+    return (o * o if direct else pl["rb"]), direct
 
 
 def _scratch_bytes(o, itemsize):
@@ -284,8 +285,7 @@ def _scratch_bytes(o, itemsize):
     small = _w2_plan(o, itemsize, 0)
     floor = max(6 * chunk, small["b_bytes"] + 64 * small["kd"] * itemsize)
     big = _w2_plan(o, itemsize, 1 << 40)
-    want = max(big["b_bytes"] + 2 * big["a_bytes"],
-               _vstage_elems(o) * itemsize)
+    want = max(big["b_bytes"] + big["a_bytes"], _vstage_elems(o) * itemsize)
     w_bytes = _round_up(o * _w_strides(o)[0] * itemsize, 128)
     want = min(want, SMEM_DYN_MAX - w_bytes)
     return _round_up(max(want, floor), 16)
@@ -295,80 +295,54 @@ def _vstage_elems(o):
     return 12 * o * (o + 1) + 12 * o
 
 
-def _stream_maps(q, o):
-    """(s_c, s_u) of build_w: chunk c, row u, column v of stream q land
-    at W[c * s_c + u * s_u + v]."""
-    p0, p1, p2 = _perm_of(q)
-    si, sj, sk = _slot(p0, o), _slot(p1, o), _slot(p2, o)
-    if q < 4:
-        return si, (sk if q & 1 else sj)
-    return (sk if q & 1 else sj), (sj if q & 1 else sk)
+def _build_w_direct(o, itemsize, T):
+    """build_w_direct's accesses, thread item by thread item: per stream
+    q the offsets it reads from the stream's cell base, and the padded W
+    offsets it writes (NV consecutive k a thread item)."""
+    nv = 16 // itemsize if o % (16 // itemsize) == 0 else 1
+    s0, s1, _ = _w_strides(o)
+    reads = {q: [] for q in range(6)}
+    writes = []
+    for e in range(o * o * (o // nv)):
+        ij, k = divmod(e, o // nv)
+        k *= nv
+        i, j = divmod(ij, o)
+        off = (i * T * o * o + j * o + k, j * T * o * o + i * o + k,
+               ij * o + k)
+        for q in range(6):
+            reads[q] += [off[q >> 1] + u for u in range(nv)]
+        writes += [i * s0 + j * s1 + k + u for u in range(nv)]
+    return reads, writes
 
 
-def _build_w_writes(o, itemsize, sbytes):
-    """Per stream, the W offsets build_w_ring writes, in thread order,
-    from its G / ring / row-step mapping."""
-    chunk = o * o * itemsize
-    G = min(max(STAGE_TARGET // chunk, 1), o)
-    while G > 1 and G * chunk > sbytes:
-        G -= 1
-    spq = -(-o // G)
-    rstep = EPI_THREADS // o
-    out = {q: [] for q in range(6)}
-    for st in range(6 * spq):
-        q, c0 = st // spq, (st % spq) * G
-        cnt = min(G, o - c0)
-        s_c, s_u = _stream_maps(q, o)
-        for tid in range(rstep * o):
-            v, c, u = tid % o, c0, tid // o
-            for R in range(tid // o, cnt * o, rstep):
-                while u >= o:
-                    u -= o
-                    c += 1
-                out[q].append(c * s_c + u * s_u + v)
-                u += rstep
-    return out
-
-
-def _w2_cover(o, itemsize, sbytes, dmma):
-    """(perm, row, col) products that subtract_w2's thread tiles (FFMA)
-    or warp fragments (DMMA) subtract from W; every read of the staged
-    operands checked to lie inside its buffer."""
+def _w2_cover(o, itemsize, sbytes):
+    """(perm, row, col) products that subtract_w2's warp fragments
+    subtract from W; every A row read checked to lie inside the chunk's
+    buffer (or vooo slice) and every B column inside the t2 block."""
     pl = _w2_plan(o, itemsize, sbytes)
-    nch = -(-o * o // pl["rb"])
+    rb, _ = _w2_rows(o, itemsize, sbytes)
+    nch = -(-o * o // rb)
     nrw = EPI_THREADS // 32 // pl["ncb"]
     seen = []
     for n in range(6 * nch):
-        q, r0 = n // nch, (n % nch) * pl["rb"]
-        rows = min(pl["rb"], o * o - r0)
+        q, r0 = n // nch, (n % nch) * rb
+        rows = min(rb, o * o - r0)
         for warp in range(EPI_THREADS // 32):
             cb, rw = warp % pl["ncb"], warp // pl["ncb"]
             nct = min(4, (o - 32 * cb + 7) // 8)
             for lane in range(32):
-                rg, cg, g, t = lane >> 3, lane & 7, lane >> 2, lane & 3
-                col0 = 32 * cb + 4 * cg
-                start = 64 * (rw >> 2) + 2 * (rw & 3) if dmma else rw * 16
-                for rb0 in range(start, rows, nrw * 16):
-                    if dmma:
-                        assert rb0 + 8 * g + 1 < pl["rb"]
-                        assert (32 * cb + 8 * (nct - 1) + g
-                                < pl["bn"] + 4 * itemsize // 16)
-                        for mi in range(2):
-                            r = rb0 + 8 * g + mi
-                            seen += [(q, r0 + r, 32 * cb + 8 * j + 2 * t + e)
-                                     for j in range(nct) for e in range(2)
-                                     if r < rows
-                                     and 32 * cb + 8 * j + 2 * t + e < o]
-                        continue
-                    if col0 >= o:
-                        continue
-                    assert col0 + 3 < pl["bn"]
-                    for i in range(4):
-                        r = rb0 + 4 * i + rg
-                        assert r < pl["rb"]          # inside the buffer
-                        if r < rows:
-                            seen += [(q, r0 + r, col0 + j) for j in range(4)
-                                     if col0 + j < o]
+                g, t = lane >> 2, lane & 3
+                for rb0 in range(64 * (rw >> 2) + 2 * (rw & 3), rows,
+                                 nrw * 16):
+                    assert rb0 + 8 * g + 1 < rb
+                    assert (32 * cb + 8 * (nct - 1) + g
+                            < pl["bn"] + 4 * itemsize // 16)
+                    for mi in range(2):
+                        r = rb0 + 8 * g + mi
+                        seen += [(q, r0 + r, 32 * cb + 8 * j + 2 * t + e)
+                                 for j in range(nct) for e in range(2)
+                                 if r < rows
+                                 and 32 * cb + 8 * j + 2 * t + e < o]
     return seen
 
 
@@ -412,19 +386,24 @@ def _dmma_banks(o, itemsize):
 @pytest.mark.parametrize("itemsize,o", [(4, 5), (4, 8), (4, 17), (4, 32),
                                         (4, 33), (4, 36), (8, 7), (8, 28)])
 def test_combine_kernel_index_maps_cover_once(itemsize, o):
-    """At the kernel's real shapes: build_w writes every W element once
-    per stream, and the w2 thread tiles cover every product once."""
+    """At the kernel's real shapes: build_w_direct writes every W element
+    once and reads every value of a stream's cell once, and the w2
+    fragments cover every product once."""
     sb = _scratch_bytes(o, itemsize)
     w_bytes = _round_up(o * _w_strides(o)[0] * itemsize, 128)
     assert sb >= 6 * o * o * itemsize and w_bytes + sb <= SMEM_DYN_MAX
     s0, s1, _ = _w_strides(o)
     canon = sorted(i * s0 + j * s1 + k for i in range(o) for j in range(o)
                    for k in range(o))
-    for q, offs in _build_w_writes(o, itemsize, sb).items():
-        assert sorted(offs) == canon, q
-    for dmma in (False, True):
-        seen = _w2_cover(o, itemsize, sb, dmma)
-        assert len(seen) == len(set(seen)) == 6 * o ** 3
+    T = 3
+    reads, writes = _build_w_direct(o, itemsize, T)
+    assert sorted(writes) == canon
+    ov_first = sorted(i * T * o * o + p * o + r for i in range(o)
+                      for p in range(o) for r in range(o))
+    for q, offs in reads.items():
+        assert sorted(offs) == (ov_first if q < 4 else list(range(o ** 3)))
+    seen = _w2_cover(o, itemsize, sb)
+    assert len(seen) == len(set(seen)) == 6 * o ** 3
     assert _dmma_banks(o, itemsize)
 
 
@@ -469,6 +448,7 @@ def _combine_transliteration(args, itemsize=8):
     s0, s1, _ = _w_strides(o)
     sb = _scratch_bytes(o, itemsize)
     pl = _w2_plan(o, itemsize, sb)
+    rb, _ = _w2_rows(o, itemsize, sb)
     orbits = tc.orbit_table(o, CPU).numpy()
     total = 0.0
     for A in range(T):
@@ -491,13 +471,6 @@ def _combine_transliteration(args, itemsize=8):
                     x, y, z = v[p0], v[p1], v[p2]
                     wbase = ((x * T + y) * o * T * oo + z * oo if q < 4
                              else ((z * T + x) * T + y) * oo * o)
-                    s_c, s_u = _stream_maps(q, o)
-                    for c in range(o):              # build_w_ring
-                        src = wbase + c * (T * oo if q < 4 else oo)
-                        ch = w_flat[q][src:src + oo].reshape(o, o)
-                        off = (c * s_c + np.arange(o)[:, None] * s_u
-                               + np.arange(o)[None, :])
-                        W[off] = ch if q == 0 else W[off] + ch
                     # build_w_direct: (i, j, k) of stream q
                     off = (ii * T * oo + jj * o if q < 2 else
                            jj * T * oo + ii * o if q < 4 else
@@ -510,16 +483,15 @@ def _combine_transliteration(args, itemsize=8):
                     vs[12 * blk + q * o:12 * blk + (q + 1) * o] = t1[p2, z]
                     vs[12 * blk + (6 + q) * o:
                        12 * blk + (7 + q) * o] = fvo[p2, z]
-                np.testing.assert_allclose(
-                    W[ii * s0 + jj * s1 + kk], Wd, rtol=1e-13, atol=1e-13)
+                W[ii * s0 + jj * s1 + kk] = Wd
                 for q in range(6):                  # subtract_w2
                     p0, p1, p2 = _perm_of(q)
                     si, sj, sk = _slot(p0, o), _slot(p1, o), _slot(p2, o)
                     Bs = np.zeros((pl["kd"], pl["bn"]))
                     Bs[:o, :o] = t2p[p2, p1, v[p2], v[p1]]
                     va = vooo[p0, v[p0]]
-                    for r0 in range(0, oo, pl["rb"]):
-                        rows = np.arange(r0, min(oo, r0 + pl["rb"]))
+                    for r0 in range(0, oo, rb):
+                        rows = np.arange(r0, min(oo, r0 + rb))
                         Ach = np.zeros((len(rows), pl["kd"]))
                         Ach[:, :o] = va[rows]
                         prod = (Ach @ Bs)[:, :o]

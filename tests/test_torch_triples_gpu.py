@@ -128,18 +128,16 @@ def test_kernel_nocc_forms(cuda, dtype, nocc, act):
                                    atol=1e-5 * float(e_p.abs().max()))
 
 
-# the profile form with each variant (VARIANTS bits: the other w2 form,
-# the W build by a bulk-copy ring of 16 or 32 KB stages, vooo staged by
-# bulk copies) against the plain version, in fp64 at nocc 8 and 26 (o^2
-# not a multiple of 16: the w2 chunks staged by the threads)
-@pytest.mark.parametrize("variant", [0, 1, 2, 6, 8, 9])
+# the profile form (the kernel's template flag that stamps each phase of a
+# cell) against the plain version and, bit for bit, the kernel, in fp64 at
+# nocc 8 (vooo fragments from L2) and 26 (w2 chunks staged by the threads)
 @pytest.mark.parametrize("nocc", [8, 26])
-def test_profile_form_variants(cuda, nocc, variant):
+def test_profile_form(cuda, nocc):
     t1, t2, eris = _problem(nocc, 6, 2, cuda, torch.float64)
     outs, eijk, _ = _tiles(t1, t2, eris, 2, False)
     args = (*outs[3][:8], eijk, *outs[3][8:10])
     n0 = tc.launch_count
-    e_p, cyc = tc.tile_energy_fused_profile(*args, variant=variant)
+    e_p, cyc = tc.tile_energy_fused_profile(*args)
     assert tc.launch_count == n0              # counted apart
     assert cyc.shape == (2, 2, 2, len(tc.PHASES) + 1)
     busy = cyc[..., -1] > 0
@@ -147,8 +145,15 @@ def test_profile_form_variants(cuda, nocc, variant):
     assert (cyc[..., :-1].sum(-1)[busy] == cyc[..., -1][busy]).all()
     torch.testing.assert_close(e_p, tc.tile_energy_fused_reference(*args),
                                rtol=1e-10, atol=1e-14)
-    if variant == 0:      # the kernel's own choices, bit for bit
-        assert e_p.item() == tc.tile_energy_fused(*args).item()
+    assert e_p.item() == tc.tile_energy_fused(*args).item()
+
+
+def test_profile_form_rejects_unstaged(cuda):
+    # fp64 at nocc=30 runs the unstaged form, several blocks a cell
+    t1, t2, eris = _problem(30, 4, 9, cuda, torch.float64)
+    outs, eijk, _ = _tiles(t1, t2, eris, 2, False)
+    with pytest.raises(ValueError, match="staged form only"):
+        tc.tile_energy_fused_profile(*outs[1][:8], eijk, *outs[1][8:10])
 
 
 def test_unstaged_kernel_large_nocc(cuda):
