@@ -43,7 +43,13 @@ each, started together), then runs:
      shapes through their entry points, then each of their five kernels
      against its plain version (dispatch, smem and slab exact; dots rtol
      1e-5 on random inputs in each mode; stream fp64 sums rtol 1e-10),
-     with its time, the plain version's, a library call's and the bound.
+     with its time, the plain version's, a library call's and the bound
+     (the largest of bytes, operations and the launch floor, p1's
+     graph-replayed empty kernel).  The dots kernel and its library calls
+     are timed on operands made beforehand (bf16 for 'bf16' and 'split',
+     the split pass timed apart), with the kernel's copy-only form and
+     the L2 rate; the slab relayout and permute().contiguous() cold and
+     warm.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, its error against the
@@ -703,6 +709,14 @@ def main():
     def rand(*shape):
         return torch.rand(shape, generator=gen6, device=dev) * 2 - 1
 
+    # the launch floor: the empty kernel's graph-replayed time of (a); every
+    # probe's bound is the largest of its bytes, its operations and it
+    floor = r1[str((pv.T,))]["ms_graph"]
+
+    def probe_bound(nbyte, flops):
+        b = bound_ms(nbyte, flops)
+        return (floor, "launch") if floor > b[0] else b
+
     rec = {}
     x = rand(1, 1)
     for grid in ((pv.T,), (pv.T, pv.T)):
@@ -712,13 +726,14 @@ def main():
     rec["dispatch"] = dict(
         err=0.0, ms=g1["ms_graph"],
         plain_ms=pv.cuda_ms(lambda: pv.dispatch_reference(x), 64, dev),
-        bound=bound_ms(2 * 4, {}), library=None)
+        bound=probe_bound(2 * 4, {}), library=None)
     g2 = r1[str((pv.T, pv.T))]
     say(6, "p1 dispatch ok (exact)",
         ms_stream_graph_grid_T=f"{g1['ms']:.5f}/{g1['ms_graph']:.5f}",
         ms_stream_graph_grid_TxT=f"{g2['ms']:.5f}/{g2['ms_graph']:.5f}",
         plain_ms=f"{rec['dispatch']['plain_ms']:.5f}",
-        bound_ms=f"{rec['dispatch']['bound'][0]:.2e}")
+        bound_ms=f"{rec['dispatch']['bound'][0]:.5f}",
+        bound_by=rec["dispatch"]["bound"][1])
 
     x = rand(8, pv.OO)
     if not torch.equal(pv.smem_copy(x, r2["cap"]), pv.smem_copy_reference(x)):
@@ -726,20 +741,31 @@ def main():
     rec["smem"] = dict(
         err=0.0, ms=r2["ms"],
         plain_ms=pv.cuda_ms(lambda: pv.smem_copy_reference(x), 20, dev),
-        bound=bound_ms(4 * pv.OO + 4, {}), library=None)
+        bound=probe_bound(4 * pv.OO + 4, {}), library=None)
     say(6, "p2 smem ok (exact)", cap_bytes=r2["cap"],
         ms=f"{r2['ms']:.5f}", plain_ms=f"{rec['smem']['plain_ms']:.5f}",
-        bound_ms=f"{rec['smem']['bound'][0]:.2e}")
+        bound_ms=f"{rec['smem']['bound'][0]:.5f}",
+        bound_by=rec["smem"]["bound"][1])
 
+    # p3: the kernel's times (r3) are on operands made beforehand, and so
+    # are the library calls': bf16 for 'bf16', the K-tripled bf16 pair
+    # [a_hi | a_hi | a_lo] (M x 3K) . [b_hi; b_lo; b_hi] (3K x N) for
+    # 'split' (one matmul, fp32 accumulation), fp32 for 'f32'; the split
+    # pass (or a's transpose in 'f32') is timed apart
     reps = pv.REPS * pv.T
     err3 = 0.0
     for (M, K, N, tag) in pv.p3_shapes():
         a, b = rand(M, K), rand(K, N)
-        a16, b16 = a.bfloat16(), b.bfloat16()
+        (ah, al), (bh, bl) = tr.hilo(a), tr.hilo(b)
+        a3 = torch.cat([ah, ah, al], 1)
+        b3 = torch.cat([bh, bl, bh], 0)
         lib_ms = {
             "f32": pv.cuda_ms(lambda: [a @ b for _ in range(reps)], 3, dev),
-            "bf16": pv.cuda_ms(lambda: [a16 @ b16 for _ in range(reps)], 3,
-                               dev)}
+            "bf16": pv.cuda_ms(lambda: [ah @ bh for _ in range(reps)], 3,
+                               dev),
+            "split": pv.cuda_ms(lambda: [a3 @ b3 for _ in range(reps)], 3,
+                                dev)}
+        del a3, b3
         for mode in ("bf16", "split", "f32"):
             out, cs = pv.dots(a, b, mode, reps)
             ref, rcs = pv.dots_reference(a, b, mode, reps)
@@ -753,24 +779,29 @@ def main():
             err = (out - ref).abs().max().item()
             err3 = max(err3, err)
             fl = 2.0 * M * K * N * reps
-            bnd = bound_ms((M * K + K * N + M * pv.OUT_COLS) * 4
-                           + cs.numel() * 8,
-                           {"fp32": fl} if mode == "f32" else
-                           {"bf16": fl * (3 if mode == "split" else 1)})
+            bnd = probe_bound((M * K + K * N + M * pv.OUT_COLS) * 4
+                              + cs.numel() * 8,
+                              {"fp32": fl} if mode == "f32" else
+                              {"bf16": fl * (3 if mode == "split" else 1)})
             plain = pv.cuda_ms(
                 lambda: pv.dots_reference(a, b, mode, reps), 3, dev)
             r = r3[f"{tag}/{mode}"]
-            lib = lib_ms["f32" if mode == "f32" else "bf16"]
+            lib = lib_ms[mode]
             if tag == "A" and mode == "bf16":
                 rec["dots"] = dict(err=err3, ms=r["ms"], plain_ms=plain,
                                    bound=bnd, library=lib)
+            feed = {} if r["feed_ms"] is None else dict(
+                copy_only_ms=f"{r['feed_ms']:.4f}",
+                copy_only_tbs=f"{r['feed_rate']:.2f}")
             say(6, f"p3 dots {tag} {mode} ok", shape=f"({M}x{K})x({K}x{N})",
                 reps=reps, abs_err=f"{err:.2e}", scale=f"{scale:.3e}",
                 rtol=RTOL_DOTS, ms=f"{r['ms']:.4f}",
-                tflops=f"{r['rate']:.1f}",
-                gb_read=f"{r['bytes_read'] / 1e9:.3f}",
-                bound_ms=f"{bnd[0]:.4f}", plain_ms=f"{plain:.4f}",
-                library_ms=f"{lib:.4f}", library_ms_f32=f"{lib_ms['f32']:.4f}")
+                tflops=f"{r['rate']:.1f}", library_ms=f"{lib:.4f}",
+                bound_ms=f"{bnd[0]:.4f}", bound_by=bnd[1],
+                split_pass_ms=f"{r['split_ms']:.4f}",
+                gb_streamed=f"{r['bytes_read'] / 1e9:.3f}",
+                l2_tbs=f"{r['l2_rate']:.2f}", **feed,
+                plain_ms=f"{plain:.4f}")
     rec["dots"]["err"] = err3
 
     t2r, ovr = (rand(*x.shape) for x in pv.p4_inputs(dev, f32))
@@ -789,10 +820,10 @@ def main():
         err=err4, ms=r4["ms"],
         plain_ms=pv.cuda_ms(lambda: pv.stream_sum_reference(t2r, ovr), 10,
                             dev, **cold),
-        bound=bound_ms(r4["bytes"] + 8 * 4 * torch.cuda.get_device_properties(
+        bound=probe_bound(r4["bytes"] + 8 * 4 * torch.cuda.get_device_properties(
             dev).multi_processor_count + 4, {}),
         library=pv.cuda_ms(lambda: t2r.sum() + ovr.sum(), 10, dev, **cold))
-    del flush, t2r, ovr
+    del t2r, ovr
     say(6, "p4 stream ok", bytes=r4["bytes"], abs_err=f"{err4:.2e}",
         rtol=RTOL_FP64, ms_cold=f"{r4['ms']:.4f}",
         gbs_cold=f"{r4['rate']:.0f}", ms_warm=f"{r4['ms_warm']:.4f}",
@@ -801,24 +832,35 @@ def main():
         plain_ms_cold=f"{rec['stream']['plain_ms']:.4f}",
         library_ms_cold=f"{rec['stream']['library']:.4f}")
 
+    # the slab relayout: kernel and permute().contiguous(), cold (L2
+    # flushed before each launch) and warm
     w = rand(sp.T, sp.o, sp.T, sp.o * sp.o)
     out = sp.relayout(w)
     w5 = w.view(sp.T, sp.o, sp.T, sp.o, sp.o)
     if not (torch.equal(out, sp.relayout_reference(w)) and torch.equal(
             sp.probe_value(out), w5[0, 0, 0, 0, 0] + w5[1, 1, 1, 1, 1])):
         raise RuntimeError("slab relayout differs from plain")
+
+    def permute():
+        return w5.permute(0, 2, 3, 1, 4).contiguous()
+
     rec["slab"] = dict(
         err=0.0, ms=r5["ms"],
-        plain_ms=pv.cuda_ms(lambda: sp.relayout_reference(w), 20, dev),
-        bound=bound_ms(r5["bytes"], {}),
-        library=pv.cuda_ms(lambda: w.view(sp.T, sp.o, sp.T, sp.o, sp.o)
-                           .permute(0, 2, 3, 1, 4).contiguous(), 20, dev))
-    del w, out, w5
+        plain_ms=pv.cuda_ms(lambda: sp.relayout_reference(w), 20, dev,
+                            **cold),
+        bound=probe_bound(r5["bytes"], {}),
+        library=pv.cuda_ms(permute, 20, dev, **cold))
+    lib_warm = pv.cuda_ms(permute, 20, dev)
+    del w, out, w5, flush
     say(6, "slab relayout ok (bitwise)", bytes=r5["bytes"],
-        ms=f"{r5['ms']:.4f}", gbs=f"{r5['rate']:.0f}",
-        bound_ms=f"{rec['slab']['bound'][0]:.4f}",
-        plain_ms=f"{rec['slab']['plain_ms']:.4f}",
-        library_ms=f"{rec['slab']['library']:.4f}",
+        ms_cold=f"{r5['ms']:.5f}", ms_warm=f"{r5['ms_warm']:.5f}",
+        gbs_cold=f"{r5['rate']:.0f}",
+        bound_ms=f"{rec['slab']['bound'][0]:.5f}",
+        bound_by=rec["slab"]["bound"][1],
+        share_of_bound_cold=f"{rec['slab']['bound'][0] / r5['ms']:.3f}",
+        plain_ms_cold=f"{rec['slab']['plain_ms']:.5f}",
+        library_ms_cold=f"{rec['slab']['library']:.5f}",
+        library_ms_warm=f"{lib_warm:.5f}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"

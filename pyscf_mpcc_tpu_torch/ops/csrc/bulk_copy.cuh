@@ -2,7 +2,8 @@
 // completion is counted in bytes by an mbarrier: one thread calls
 // mbar_expect_tx with the bytes of a batch and starts its copies; every
 // thread that reads the data first waits on the barrier's phase.  Used by
-// the resident (T) kernel (triples_resident.cu, through wgmma_bf16.cuh).
+// the resident (T) kernel (triples_resident.cu) and the p3 dots probe
+// (triples_probe.cu), both through wgmma_bf16.cuh.
 //
 // Shared memory that ordinary stores or loads touched before a bulk copy
 // overwrites it is handed to the copy engine (the async proxy) with
@@ -37,6 +38,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                                                uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// arrive (the barrier counts one), with no bytes: a consumer releasing a
+// stage to the thread that refills it
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 // wait until the phase of the given parity has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {

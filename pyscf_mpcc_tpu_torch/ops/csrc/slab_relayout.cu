@@ -8,12 +8,14 @@
 //
 // as a rolled loop over j.  Here it is the relayout itself.  Bound: bytes,
 // each value read once and written once (16.8 MB at o = 32, T = 8: 5.0 us
-// at 3.35 TB/s).  Design: one block per (a, b) pair stages the o rows
-// w[a, i, b, :] (o^3 fp32, 128 KB at o = 32) in dynamic shared memory with
-// coalesced 16-byte loads, then writes out[a, b] (contiguous) with
-// coalesced 16-byte stores along k, reading shared memory at row i; a
-// quarter-warp reads 32 consecutive words, so no bank conflicts.  At
-// T = 8 that is 64 blocks, fewer than the card's 132 SMs.
+// at 3.35 TB/s).  Design: a row gather.  Output row (a, b, j, i) of o
+// values is the contiguous input run w[a, i, b, j o : (j + 1) o], so the
+// relayout moves T^2 o^2 rows with no shared memory and no barrier: o / 4
+// consecutive lanes move one row with a 16-byte load and a 16-byte store,
+// a thread keeps kPieces such pieces in flight (all loads, then all
+// stores), and block x moves the consecutive 16-byte pieces x kThreads
+// kPieces .. of the output, so its stores are contiguous.  At o = 32,
+// T = 8: 512 blocks of 256 threads, about four an SM.
 //
 // The C entry returns cudaGetLastError() after its launch; the wrapper in
 // pyscf_mpcc_tpu_torch/tools/slab_loop_probe.py raises unless it is 0.
@@ -22,27 +24,36 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kPieces = 4;          // 16-byte pieces in flight a thread
+
+// piece e of the output: row e / (o/4) = ((a nt + b) o + j) o + i, piece
+// e % (o/4) of it, read from row ((a o + i) nt + b) o + j of w viewed as
+// rows of o values
+__device__ __forceinline__ unsigned src_piece(unsigned e, unsigned nt,
+                                              unsigned o) {
+  const unsigned q4 = o / 4;
+  const unsigned row = e / q4, q = e - row * q4;
+  const unsigned i = row % o, r = row / o;
+  const unsigned j = r % o, ab = r / o;
+  const unsigned b = ab % nt, a = ab / nt;
+  return (((a * o + i) * nt + b) * o + j) * q4 + q;
+}
 
 __global__ void __launch_bounds__(kThreads)
-slab_kernel(const float* __restrict__ w, float* __restrict__ out, int nt,
-            int o) {
-  extern __shared__ float4 s4[];
-  const int a = blockIdx.x / nt, b = blockIdx.x % nt;
-  const int oo = o * o, n4 = o * oo / 4, row4 = oo / 4;
-  for (int e = threadIdx.x; e < n4; e += blockDim.x) {
-    const int i = e / row4, c = e - i * row4;
-    const float4* src = reinterpret_cast<const float4*>(
-        w + ((long long)(a * o + i) * nt + b) * oo);
-    s4[e] = __ldg(src + c);
+slab_kernel(const float4* __restrict__ w, float4* __restrict__ out,
+            unsigned nt, unsigned o, unsigned n4) {
+  const unsigned e0 = blockIdx.x * (kThreads * kPieces) + threadIdx.x;
+  float4 v[kPieces];
+#pragma unroll
+  for (int u = 0; u < kPieces; ++u) {
+    const unsigned e = e0 + u * kThreads;
+    if (e < n4) v[u] = __ldg(w + src_piece(e, nt, o));
   }
-  __syncthreads();
-  float4* dst =
-      reinterpret_cast<float4*>(out + (long long)blockIdx.x * o * oo);
-  for (int e = threadIdx.x; e < n4; e += blockDim.x) {
-    const int f = 4 * e;
-    const int j = f / oo, i = (f / o) % o, k = f % o;
-    dst[e] = s4[(i * oo + j * o + k) / 4];
+#pragma unroll
+  for (int u = 0; u < kPieces; ++u) {
+    const unsigned e = e0 + u * kThreads;
+    if (e < n4) out[e] = v[u];
   }
 }
 
@@ -50,15 +61,25 @@ slab_kernel(const float* __restrict__ w, float* __restrict__ out, int nt,
 
 extern "C" {
 
-// w (nt, o, nt, o*o) and out (nt, nt, o, o, o), fp32, o a multiple of 4;
-// o^3 fp32 of dynamic shared memory a block
+// threads of a block and 16-byte pieces a thread moves (the block covers
+// their product of consecutive output pieces)
+int slab_relayout_block(int* threads, int* pieces) {
+  *threads = kThreads;
+  *pieces = kPieces;
+  return 0;
+}
+
+// w (nt, o, nt, o*o) and out (nt, nt, o, o, o), fp32, 16-byte aligned, o a
+// multiple of 4 and nt^2 o^3 / 4 below 2^31
 int slab_relayout(const void* w, void* out, int nt, int o, void* stream) {
-  const int smem = o * o * o * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  slab_kernel<<<nt * nt, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), static_cast<float*>(out), nt, o);
+  if (nt <= 0 || o <= 0 || o % 4) return (int)cudaErrorInvalidValue;
+  const long long n4 = (long long)nt * nt * o * o * o / 4;
+  if (n4 >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const long long per_block = (long long)kThreads * kPieces;
+  const unsigned nblock = (unsigned)((n4 + per_block - 1) / per_block);
+  slab_kernel<<<nblock, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(w), static_cast<float4*>(out),
+      (unsigned)nt, (unsigned)o, (unsigned)n4);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,10 @@ loop; here the relayout
 is the hand-written CUDA kernel ``ops/csrc/slab_relayout.cu`` (built for
 sm_90a at first use), with ``relayout_reference`` (a permute) beside it;
 ``relayout`` runs the plain version only for CPU tensors, and for CUDA
-tensors launches the kernel or raises.
+tensors launches the kernel or raises.  The kernel is a row gather: output
+row (a, b, j, i) is the contiguous input run w[a, i, b, j*o:(j+1)*o], moved
+by o/4 lanes with 16-byte loads and stores, ``PIECES`` pieces in flight a
+thread and ``THREADS * PIECES`` consecutive output pieces a block.
 
 Usage: python -m pyscf_mpcc_tpu_torch.tools.slab_loop_probe
 """
@@ -23,9 +26,13 @@ import functools
 import torch
 
 from pyscf_mpcc_tpu_torch.lib import device as _dev
-from pyscf_mpcc_tpu_torch.tools.triples_probe_v6 import cuda_ms
+from pyscf_mpcc_tpu_torch.tools.triples_probe_v6 import (FLUSH_BYTES, _fmt,
+                                                        cuda_ms)
 
 o, T = 32, 8
+# block of the kernel: threads, and 16-byte pieces a thread moves
+# (slab_relayout_block in csrc/slab_relayout.cu, checked when it is loaded)
+THREADS, PIECES = 256, 4
 
 # kernel launches made by relayout (CUDA tensors only)
 launch_count = 0
@@ -44,12 +51,16 @@ def _lib():
     lib.slab_relayout.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.slab_relayout.restype = ctypes.c_int
+    threads, pieces = ctypes.c_int(0), ctypes.c_int(0)
+    lib.slab_relayout_block(ctypes.byref(threads), ctypes.byref(pieces))
+    if (threads.value, pieces.value) != (THREADS, PIECES):
+        raise RuntimeError("slab kernel block differs from THREADS, PIECES")
     return lib
 
 
 def relayout(w):
-    """out[a, b, j, i, k] = w[a, i, b, j*o + k] by the CUDA kernel (one
-    block per (a, b), fp32, o a multiple of 4)."""
+    """out[a, b, j, i, k] = w[a, i, b, j*o + k] by the CUDA kernel (a row
+    gather; fp32, o a multiple of 4)."""
     global launch_count
     if w.device.type == "cpu":
         return relayout_reference(w)
@@ -81,8 +92,9 @@ def probe_input(dev, dtype):
 
 
 def main(device=None):
-    """Relayout the probe's w once, check the scalar, time the kernel;
-    returns {"value", "expect", "ms", "rate", "unit"} (no time off the
+    """Relayout the probe's w once, check the scalar, time the kernel cold
+    (L2 flushed before each launch) and warm; returns {"value", "expect",
+    "ms" (cold), "ms_warm", "rate", "unit", "bytes"} (no time off the
     card)."""
     dev, dtype = _dev.resolve(device)
     w = probe_input(dev, dtype)
@@ -91,16 +103,21 @@ def main(device=None):
     expect = float(wv[0, 0, 0, 0, 0] + wv[1, 1, 1, 1, 1])
     if value != expect:
         raise RuntimeError(f"slab value {value!r}, expected {expect!r}")
-    ms = cuda_ms(lambda: relayout(w), 20, dev)
+    ms = ms_warm = None
+    if dev.type == "cuda":
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=dev)
+        ms = cuda_ms(lambda: relayout(w), 20, dev,
+                     before=lambda: flush.sum())
+        ms_warm = cuda_ms(lambda: relayout(w), 20, dev)
+        del flush
     nbyte = 2 * w.numel() * w.element_size()
     gbs = None if ms is None else nbyte / ms / 1e6
-    print(f"OK value={value:.6f} ms="
-          f"{'not measured' if ms is None else f'{ms:.4f}'} "
-          f"GB/s={'not measured' if gbs is None else f'{gbs:.0f}'}",
-          flush=True)
+    print(f"OK value={value:.6f} ms={_fmt(ms, 5)} (cold), {_fmt(ms_warm, 5)} "
+          f"(warm) GB/s={_fmt(gbs, 0)} (cold)", flush=True)
     print(f"expected={expect:.6f}", flush=True)
-    return dict(value=value, expect=expect, ms=ms, rate=gbs,
-                unit="GB/s (read + write)", bytes=nbyte)
+    return dict(value=value, expect=expect, ms=ms, ms_warm=ms_warm,
+                rate=gbs, unit="GB/s (read + write, cold)", bytes=nbyte)
 
 
 if __name__ == "__main__":

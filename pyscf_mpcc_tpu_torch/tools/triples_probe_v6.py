@@ -14,7 +14,8 @@ tensors, and for CUDA tensors launch the kernel or raise.
   p3  in-kernel dot rate at the design's shapes, (256,424)x(424,8192),
       (2048,424)x(424,1024) and (256,424)x(424,1024), 6 dots x T repeats,
       in modes 'bf16' (the JAX probe's DEFAULT precision), 'split' (bf16x3)
-      and 'f32'
+      on wgmma with the operands split into bf16 once a call, and 'f32'
+      on FFMA; the split pass, and the kernel's copy-only form, timed apart
   p4  input fetch rate: one kernel reading all 62.5 MB of t2 and ov, cold
       (L2 flushed before each launch) and warm
 
@@ -37,12 +38,16 @@ import time
 import torch
 
 from pyscf_mpcc_tpu_torch.lib import device as _dev
-from pyscf_mpcc_tpu_torch.ops.triples_resident import MODES, hilo
+from pyscf_mpcc_tpu_torch.ops.triples_resident import (
+    MMA_KC, MODES, hilo, ov_operand, t2_operand)
 
 o, T, F, OO = 32, 8, 424, 1024
 REPS = 6          # dots per grid step in p3 (the per-A perm set)
 NCHAIN = 64       # chained launches in p1
-DOT_TILE = 128    # output tile edge of the dots kernel (rows and columns)
+# output tile (rows, columns) of a block of the dots kernel in each mode
+# (probe_dots_geometry in csrc/triples_probe.cu, checked when it is used)
+DOT_TILES = {"f32": (128, 128), "split": (128, 256), "bf16": (128, 256)}
+CS_TILE = 128     # edge of a checksum tile (rows and columns)
 OUT_COLS = 128    # columns of the p3 accumulator (the TPU kernel's w[:, :128])
 FLUSH_BYTES = 128 * 2**20   # more than twice the 50 MB L2, for cold p4 runs
 # cycles a second the timer's spin assumes: the H100's SM clock is at most
@@ -67,8 +72,8 @@ def _lib():
             ("probe_smem", [p, i, i, p, p]),
             ("probe_smem_occupancy", [i, pint]),
             ("probe_smem_optin", [pint]),
-            ("probe_dots_tile", []),
-            ("probe_dots", [i, p, p, i, i, i, i, p, p, p]),
+            ("probe_dots_geometry", [i, pint]),
+            ("probe_dots", [i, i, p, p, p, p, i, i, i, i, i, p, p, p]),
             ("probe_stream", [p, ll, p, ll, i, i, i, p, p, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -212,10 +217,10 @@ def dots_reference(a, b, mode, reps):
     for _ in range(reps):
         r = r + w[:, :OUT_COLS]
     M, N = w.shape
-    mt, nt = -(-M // DOT_TILE), -(-N // DOT_TILE)
-    wp = torch.nn.functional.pad(w.double(), (0, nt * DOT_TILE - N,
-                                              0, mt * DOT_TILE - M))
-    cs = wp.reshape(mt, DOT_TILE, nt, DOT_TILE).sum((1, 3)) * reps
+    mt, nt = -(-M // CS_TILE), -(-N // CS_TILE)
+    wp = torch.nn.functional.pad(w.double(), (0, nt * CS_TILE - N,
+                                              0, mt * CS_TILE - M))
+    cs = wp.reshape(mt, CS_TILE, nt, CS_TILE).sum((1, 3)) * reps
     return r, cs
 
 
@@ -225,37 +230,129 @@ def _check_mode(mode):
                          "'bf16'")
 
 
+def dots_grid(M, N, mode, reps, slots):
+    """(ntile, nsplit) of the dots kernel: its output tiles
+    (``DOT_TILES[mode]``) and the repeat groups.  Where the tiles are fewer
+    than ``slots``, the blocks the card holds at once, the repeats are split
+    over nsplit groups (at most reps), so that ntile * nsplit blocks fill
+    the card; block x takes tile x % ntile (row tile tile % (M/bm), column
+    tile tile // (M/bm)) and group g = x // ntile, the repeats
+    [g reps // nsplit, (g + 1) reps // nsplit)."""
+    bm, bn = DOT_TILES[mode]
+    ntile = (M // bm) * -(-N // bn)
+    return ntile, max(1, min(reps, slots // ntile))
+
+
+def dots_operands(a, b, mode):
+    """The dots kernel's operands, made once a call from a (M, K) and b
+    (K, N): 'f32' (a^T, b) in the dtype; 'split' ((a_hi, a_lo),
+    (b_hi, b_lo)) and 'bf16' (a_hi, b_hi), split into bf16 and tiled in
+    the order of the kernel's stages, a K-major by ``ov_operand`` and b
+    MN-major by ``t2_operand`` (K zero-padded to a multiple of
+    ``MMA_KC[mode]``; ``ov_dense``, ``t2_dense`` give them back)."""
+    _check_mode(mode)
+    if mode == "f32":
+        return a.t().contiguous(), b.contiguous()
+    return ov_operand(a, mode), t2_operand(b[None], mode)
+
+
+def _parts(x):
+    return x if isinstance(x, tuple) else (x, None)
+
+
+@functools.cache
+def _geometry(mode):
+    """(rows, columns, stage k depth, blocks an SM holds) of the kernel."""
+    g = (ctypes.c_int * 4)()
+    _raise(_lib().probe_dots_geometry(MODES[mode], g), "dots geometry")
+    if (tuple(g[:2]) != DOT_TILES[mode]
+            or (mode != "f32" and g[2] != MMA_KC[mode])):
+        raise RuntimeError(f"dots kernel geometry {tuple(g)} differs from "
+                           f"DOT_TILES / MMA_KC ({mode})")
+    return tuple(g)
+
+
+def _check_ops(ah, al, bh, bl, M, kk, N, mode):
+    """Raise unless the parts are what the kernel takes in the mode."""
+    if mode == "f32":
+        shapes, dtype = [(kk, M), (kk, N)], torch.float32
+    else:
+        kc = MMA_KC[mode]
+        shapes = [(kk // kc, M // 8, kc // 8, 8, 8),
+                  (1, kk // kc, N // 8, kc // 8, 8, 8)]
+        dtype = torch.bfloat16
+    if (al is None) != (mode != "split") or (bl is None) != (al is None):
+        raise ValueError(f"mode {mode!r} takes lo parts only in 'split'")
+    for x, shape in ((ah, shapes[0]), (al, shapes[0]), (bh, shapes[1]),
+                     (bl, shapes[1])):
+        if x is None:
+            continue
+        if x.device != ah.device or x.device.type != "cuda":
+            raise ValueError(f"dots operands on {x.device} and {ah.device}")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"dots operand {x.dtype} {tuple(x.shape)}, "
+                             f"the kernel takes {dtype} {shape} ({mode})")
+        if not x.is_contiguous():
+            raise ValueError("non-contiguous dots operand")
+
+
+def dots_run(ops, M, K, N, mode, reps, feed=False):
+    """The dots kernel on operands of ``dots_operands`` (CUDA): returns
+    (out, checksum) as dots_reference does, the groups' partials summed
+    over the group axis by one reduction (no atomics, deterministic).
+    feed (modes 'split' and 'bf16'): the kernel's copy-only form, which
+    streams the stages and multiplies nothing; returns None."""
+    (ah, al), (bh, bl) = (_parts(x) for x in ops)
+    dev = ah.device
+    kk = K if mode == "f32" else ah.shape[0] * MMA_KC[mode]
+    _check_ops(ah, al, bh, bl, M, kk, N, mode)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, nsplit = dots_grid(M, N, mode, reps, nsm * _geometry(mode)[3])
+    outp = torch.empty((nsplit, M, OUT_COLS), dtype=torch.float32,
+                       device=dev)
+    csp = torch.empty((nsplit, M // CS_TILE, N // CS_TILE),
+                      dtype=torch.float64, device=dev)
+    _raise(_lib().probe_dots(
+        MODES[mode], int(feed), ah.data_ptr(), 0 if al is None else
+        al.data_ptr(), bh.data_ptr(), 0 if bl is None else bl.data_ptr(),
+        M, kk, N, reps, nsplit, outp.data_ptr(), csp.data_ptr(),
+        _stream(dev)), "dots")
+    launch_count["dots"] += 1
+    if feed:
+        return None
+    return outp.sum(0), csp.sum(0)
+
+
 def dots(a, b, mode, reps):
-    """The dots kernel: a @ b recomputed reps times in the block; returns
-    (out, checksum) as dots_reference does.  The kernel takes fp32, M and
-    N multiples of 128 and K a multiple of 4 (the last k-step may be
-    ragged)."""
+    """The dots kernel: a @ b recomputed reps times; returns (out,
+    checksum) as dots_reference does.  The kernel takes fp32, M and N
+    multiples of 128, K a multiple of 4 and reps >= 1; the operands are
+    made once a call (``dots_operands``)."""
     _check_mode(mode)
     if a.device.type == "cpu":
         return dots_reference(a, b, mode, reps)
     _check_cuda(a, b)
     (M, K), (K2, N) = a.shape, b.shape
-    if K2 != K or M % DOT_TILE or N % DOT_TILE or K % 4 or N < OUT_COLS:
-        raise ValueError(f"dots takes M, N multiples of {DOT_TILE} and K of "
+    if K2 != K or M % CS_TILE or N % CS_TILE or K % 4 or N < OUT_COLS:
+        raise ValueError(f"dots takes M, N multiples of {CS_TILE} and K of "
                          f"4, got ({M}x{K})x({K2}x{N})")
-    lib = _lib()
-    if lib.probe_dots_tile() != DOT_TILE:
-        raise RuntimeError("dots kernel tile differs from DOT_TILE")
-    out = torch.empty((M, OUT_COLS), dtype=a.dtype, device=a.device)
-    cs = torch.empty((M // DOT_TILE, N // DOT_TILE), dtype=torch.float64,
-                     device=a.device)
-    _raise(lib.probe_dots(MODES[mode], a.data_ptr(), b.data_ptr(), M, K, N,
-                          reps, out.data_ptr(), cs.data_ptr(),
-                          _stream(a.device)), "dots")
-    launch_count["dots"] += 1
-    return out, cs
+    if reps < 1:
+        raise ValueError(f"dots takes reps >= 1, got {reps}")
+    return dots_run(dots_operands(a, b, mode), M, K, N, mode, reps)
 
 
-def dots_bytes(M, K, N, reps, itemsize):
-    """Bytes the dots kernel reads per call: every block streams its a
-    rows and b columns through the k-loop once per repeat."""
-    nblock = -(-M // DOT_TILE) * -(-N // DOT_TILE)
-    return reps * nblock * 2 * DOT_TILE * K * itemsize
+def dots_bytes(M, K, N, reps, mode):
+    """Bytes the dots kernel streams per call: every block reads its a rows
+    and b columns through the k-loop once per repeat, in the operand form
+    of the mode (fp32; bf16, hi and lo in 'split', K padded to the
+    stage's k depth)."""
+    bm, bn = DOT_TILES[mode]
+    ntile = -(-M // bm) * -(-N // bn)
+    if mode == "f32":
+        return reps * ntile * (bm + bn) * K * 4
+    kp = -(-K // MMA_KC[mode]) * MMA_KC[mode]
+    nbyte = 2 * (2 if mode == "split" else 1)
+    return reps * ntile * (bm + bn) * kp * nbyte
 
 
 # --------------------------------------------------------------------------
@@ -303,7 +400,9 @@ def cuda_ms(fn, n, dev, before=None, hide_host=True):
     """Mean device milliseconds of fn over n calls after one warm-up, from
     CUDA events; None off the card (no device time is measured there).
 
-    before(), if given, runs ahead of each call outside the timed span.
+    before(), if given, runs ahead of each call outside the timed span,
+    right before it (after the spin kernel), so that the card does not
+    idle between the two.
     hide_host: a spin kernel ahead of the first event keeps the card busy
     while the host enqueues the calls, so that the span holds the device's
     work and not the host's gaps between launches (a launch through a
@@ -334,8 +433,8 @@ def cuda_ms(fn, n, dev, before=None, hide_host=True):
         return t0.elapsed_time(t1) / n
     tot = 0.0
     for _ in range(n):
-        before()
         spin(1)
+        before()
         t0.record()
         fn()
         t1.record()
@@ -425,7 +524,10 @@ def p3_shapes():
 
 def p3_dots(device=None):
     """In-kernel dot rates at the design's shapes, 6 dots x T repeats, in
-    each mode."""
+    each mode.  ``ms`` is the kernel on operands made beforehand (the
+    split into bf16, or the transpose of a in 'f32', is timed apart as
+    ``split_ms``); in 'split' and 'bf16' ``feed_ms`` times the kernel's
+    copy-only form, and ``l2_rate`` is the bytes it streams over ``ms``."""
     dev, dtype = _dev.resolve(device)
     reps = REPS * T
     res = {}
@@ -438,17 +540,33 @@ def p3_dots(device=None):
             _expect(f"P3 {tag} {mode}", value, float(reps * K))
             _expect(f"P3 {tag} {mode} checksum", float(cs.sum()),
                     float(reps * M * K * N))
-            ms = cuda_ms(lambda: dots(a, b, mode, reps), 10, dev)
             fl = 2.0 * M * K * N * reps
+            nread = dots_bytes(M, K, N, reps, mode)
+            ms = split_ms = feed_ms = None
+            if dev.type == "cuda":
+                ops = dots_operands(a, b, mode)
+                ms = cuda_ms(lambda: dots_run(ops, M, K, N, mode, reps), 10,
+                             dev)
+                split_ms = cuda_ms(lambda: dots_operands(a, b, mode), 10,
+                                   dev)
+                if mode != "f32":
+                    feed_ms = cuda_ms(lambda: dots_run(
+                        ops, M, K, N, mode, reps, feed=True), 10, dev)
+                del ops
             tf = None if ms is None else fl / ms / 1e9
-            nread = dots_bytes(M, K, N, reps, a.element_size())
+            l2 = None if ms is None else nread / ms / 1e9
+            feed = None if feed_ms is None else nread / feed_ms / 1e9
             res[f"{tag}/{mode}"] = dict(
                 value=value, expect=float(reps * K), ms=ms, rate=tf,
                 unit="TFLOP/s", flops=fl, bytes_read=nread,
-                bytes_unique=(M * K + K * N) * a.element_size())
+                bytes_unique=(M * K + K * N) * a.element_size(),
+                split_ms=split_ms, feed_ms=feed_ms, l2_rate=l2,
+                feed_rate=feed)
             print(f"P3 dot {tag} ({M}x{K})x({K}x{N}) x{REPS} x{T} [{mode}]: "
-                  f"{_fmt(ms, 3)} ms = {_fmt(tf, 1)} TFLOP/s, "
-                  f"{nread / 1e9:.2f} GB read", flush=True)
+                  f"{_fmt(ms, 4)} ms = {_fmt(tf, 1)} TFLOP/s, "
+                  f"{nread / 1e9:.2f} GB streamed = {_fmt(l2, 2)} TB/s; "
+                  f"split pass {_fmt(split_ms, 4)} ms; copy-only "
+                  f"{_fmt(feed_ms, 4)} ms = {_fmt(feed, 2)} TB/s", flush=True)
     return res
 
 

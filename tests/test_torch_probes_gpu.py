@@ -1,5 +1,8 @@
 """The hand-written CUDA probe kernels (ops/csrc/triples_probe.cu,
-ops/csrc/slab_relayout.cu) against their plain PyTorch versions on the card.
+ops/csrc/slab_relayout.cu) against their plain PyTorch versions on the card:
+the dots kernel in each mode (wgmma fed by bulk copies in 'split' and
+'bf16', FFMA in 'f32'), on its repeat-split path too, and the slab row
+gather.
 
 Needs an NVIDIA GPU with sm_90a (H100) and nvcc; skipped elsewhere.  Run on
 the card with ``python -m pytest tests/test_torch_probes_gpu.py
@@ -117,6 +120,60 @@ def test_dots_ones_exact(cuda, mode):
     assert out[0, 0].item() == 48 * 424 == 20352
     assert torch.all(out == 20352)
     assert cs.sum().item() == 48 * 256 * 424 * 1024
+
+
+@pytest.mark.parametrize("mode", ["bf16", "split", "f32"])
+@pytest.mark.parametrize("reps", [48, 3, 50])
+def test_dots_repeat_split(cuda, mode, reps):
+    # shape A1: fewer output tiles than the card holds blocks, so the
+    # repeats are split over groups of blocks (50: uneven groups)
+    M, K, N = 256, 424, 1024
+    nsm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per_sm = probe._geometry(mode)[3]
+    ntile, nsplit = probe.dots_grid(M, N, mode, reps, nsm * per_sm)
+    assert per_sm >= (2 if mode == "f32" else 1)
+    assert nsplit == min(reps, nsm * per_sm // ntile) > 1
+    a, b = _rand((M, K), 8, cuda), _rand((K, N), 9, cuda)
+    out, cs = probe.dots(a, b, mode, reps)
+    ref, rcs = probe.dots_reference(a, b, mode, reps)
+    torch.testing.assert_close(out, ref, rtol=RTOL_DOTS,
+                               atol=RTOL_DOTS * ref.abs().max().item())
+    torch.testing.assert_close(cs, rcs, rtol=RTOL_DOTS,
+                               atol=RTOL_DOTS * rcs.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["bf16", "split", "f32"])
+def test_dots_split_once_a_call(cuda, mode, monkeypatch):
+    # the split into bf16 (hilo) runs once per operand a call, whatever
+    # the repeats; f32 splits nothing
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    calls = []
+    hilo = tr.hilo
+
+    def counted(x):
+        calls.append(tuple(x.shape))
+        return hilo(x)
+
+    monkeypatch.setattr(tr, "hilo", counted)
+    a, b = _rand((256, 424), 10, cuda), _rand((424, 1024), 11, cuda)
+    for reps in (1, 48):
+        calls.clear()
+        probe.dots(a, b, mode, reps)
+        assert calls == ([] if mode == "f32" else [(256, 432 if mode ==
+                          "split" else 448), (1, 432 if mode == "split"
+                                              else 448, 1024)])
+
+
+@pytest.mark.parametrize("mode", ["bf16", "split"])
+def test_dots_copy_only_form_launches(cuda, mode):
+    a, b = _rand((256, 424), 12, cuda), _rand((424, 1024), 13, cuda)
+    ops = probe.dots_operands(a, b, mode)
+    n0 = probe.launch_count["dots"]
+    assert probe.dots_run(ops, 256, 424, 1024, mode, 3, feed=True) is None
+    torch.cuda.synchronize()
+    assert probe.launch_count["dots"] == n0 + 1
+    with pytest.raises(ValueError, match="takes"):
+        probe.dots_run(ops[::-1], 256, 424, 1024, mode, 3)
 
 
 def test_dots_reject_bad_input(cuda):
