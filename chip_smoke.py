@@ -816,12 +816,12 @@ def main():
                            f"{v_p.item()!r}")
     flush = torch.empty(pv.FLUSH_BYTES // 4, device=dev)
     cold = dict(before=lambda: flush.sum())
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     rec["stream"] = dict(
         err=err4, ms=r4["ms"],
         plain_ms=pv.cuda_ms(lambda: pv.stream_sum_reference(t2r, ovr), 10,
                             dev, **cold),
-        bound=probe_bound(r4["bytes"] + 8 * 4 * torch.cuda.get_device_properties(
-            dev).multi_processor_count + 4, {}),
+        bound=probe_bound(r4["bytes"] + 8 * 4 * nsm + 4, {}),
         library=pv.cuda_ms(lambda: t2r.sum() + ovr.sum(), 10, dev, **cold))
     del t2r, ovr
     say(6, "p4 stream ok", bytes=r4["bytes"], abs_err=f"{err4:.2e}",
@@ -851,6 +851,9 @@ def main():
         bound=probe_bound(r5["bytes"], {}),
         library=pv.cuda_ms(permute, 20, dev, **cold))
     lib_warm = pv.cuda_ms(permute, 20, dev)
+    # the floor of the cold timing: the empty kernel, timed as the slab is
+    x = rand(1, 1)
+    empty_cold = pv.cuda_ms(lambda: pv.dispatch(x, (pv.T,)), 20, dev, **cold)
     del w, out, w5, flush
     say(6, "slab relayout ok (bitwise)", bytes=r5["bytes"],
         ms_cold=f"{r5['ms']:.5f}", ms_warm=f"{r5['ms_warm']:.5f}",
@@ -861,6 +864,7 @@ def main():
         plain_ms_cold=f"{rec['slab']['plain_ms']:.5f}",
         library_ms_cold=f"{rec['slab']['library']:.5f}",
         library_ms_warm=f"{lib_warm:.5f}",
+        empty_kernel_ms_cold=f"{empty_cold:.5f}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"

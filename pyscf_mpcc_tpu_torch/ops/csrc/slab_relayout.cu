@@ -40,22 +40,6 @@ __device__ __forceinline__ unsigned src_piece(unsigned e, unsigned nt,
   return (((a * o + i) * nt + b) * o + j) * q4 + q;
 }
 
-// the alternative timed by tools/p3_alternatives.py (slab_variant(1)):
-// block x moves the consecutive 16-byte pieces x kThreads kPieces .. of
-// the input, so its loads are contiguous and its stores scattered rows
-int g_variant = 0;
-
-__device__ __forceinline__ unsigned dst_piece(unsigned f, unsigned nt,
-                                              unsigned o) {
-  const unsigned q4 = o / 4;
-  const unsigned row = f / q4, q = f - row * q4;   // ((a o + i) nt + b) o + j
-  const unsigned j = row % o, r = row / o;
-  const unsigned b = r % nt, ai = r / nt;
-  const unsigned i = ai % o, a = ai / o;
-  return (((a * nt + b) * o + j) * o + i) * q4 + q;
-}
-
-template <bool kInputOrder>
 __global__ void __launch_bounds__(kThreads)
 slab_kernel(const float4* __restrict__ w, float4* __restrict__ out,
             unsigned nt, unsigned o, unsigned n4) {
@@ -64,21 +48,18 @@ slab_kernel(const float4* __restrict__ w, float4* __restrict__ out,
 #pragma unroll
   for (int u = 0; u < kPieces; ++u) {
     const unsigned e = e0 + u * kThreads;
-    if (e < n4) v[u] = __ldg(w + (kInputOrder ? e : src_piece(e, nt, o)));
+    if (e < n4) v[u] = __ldg(w + src_piece(e, nt, o));
   }
 #pragma unroll
   for (int u = 0; u < kPieces; ++u) {
     const unsigned e = e0 + u * kThreads;
-    if (e < n4) out[kInputOrder ? dst_piece(e, nt, o) : e] = v[u];
+    if (e < n4) out[e] = v[u];
   }
 }
 
 }  // namespace
 
 extern "C" {
-
-// 1: the input-order alternative; 0: the kernel itself
-void slab_variant(int v) { g_variant = v; }
 
 // threads of a block and 16-byte pieces a thread moves (the block covers
 // their product of consecutive output pieces)
@@ -96,8 +77,7 @@ int slab_relayout(const void* w, void* out, int nt, int o, void* stream) {
   if (n4 >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const long long per_block = (long long)kThreads * kPieces;
   const unsigned nblock = (unsigned)((n4 + per_block - 1) / per_block);
-  auto kern = g_variant ? slab_kernel<true> : slab_kernel<false>;
-  kern<<<nblock, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  slab_kernel<<<nblock, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(w), static_cast<float4*>(out),
       (unsigned)nt, (unsigned)o, (unsigned)n4);
   return (int)cudaGetLastError();

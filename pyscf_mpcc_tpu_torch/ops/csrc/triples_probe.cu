@@ -37,9 +37,9 @@
 //             accumulator each, run wgmma m64n256k16 (wgmma_bf16.cuh) and
 //             release each stage on its empty barrier.  Every block
 //             streams (128 + 256) K bf16 rows a repeat from L2 (1.06 GB
-//             at shape A in bf16, twice that in split); on the card that
-//             feed runs at about 14 TB/s alone, and the MMA side sets the
-//             pace (PERF.md, PR 6).
+//             at shape A in bf16, twice that in split); the kernel's
+//             copy-only form streams that at 9-15 TB/s on an H100 80GB
+//             HBM3 at 700 W, so the MMA side sets the pace (PERF.md §6).
 //             f32: FFMA, 128 x 128 outputs a block of 256 threads, two
 //             blocks an SM; a is transposed once a call, so a stage holds
 //             16 rows of a^T and of b (cp.async, three stages, the ragged
@@ -298,18 +298,8 @@ struct MmaOps {
   const unsigned char* b[2];   // tiled b, hi and lo
 };
 
-template <bool kKmajorB>
-__device__ __forceinline__ void mma256(float (&acc)[128], uint64_t a,
-                                       uint64_t b) {
-  if constexpr (kKmajorB)
-    wgmma::mma_m64n256k16_kmajor_b(acc, a, b);
-  else
-    wgmma::mma_m64n256k16(acc, a, b);
-}
-
 // warpgroup wr's 64 x 256 product of the staged chunk, added to acc
-// (kKmajorB: B read with the transpose flag 0, a timing alternative)
-template <bool kSplitMode, bool kKmajorB = false>
+template <bool kSplitMode>
 __device__ __forceinline__ void mma_stage(const unsigned char* st,
                                           float (&acc)[128], int wr) {
   using Tl = DotTile<kSplitMode>;
@@ -319,12 +309,12 @@ __device__ __forceinline__ void mma_stage(const unsigned char* st,
   for (int s = 0; s < Tl::KC / 16; ++s) {     // k16 steps: 2 core matrices
     const uint64_t ah = wgmma::desc(a0 + 256 * s, 128, Tl::SBO);
     const uint64_t bh = wgmma::desc(b0 + 256 * s, 128, Tl::SBO);
-    mma256<kKmajorB>(acc, ah, bh);
+    wgmma::mma_m64n256k16(acc, ah, bh);
     if (kSplitMode) {
       const uint64_t al = wgmma::desc(a0 + Tl::A_HALF + 256 * s, 128, Tl::SBO);
       const uint64_t bl = wgmma::desc(b0 + Tl::B_HALF + 256 * s, 128, Tl::SBO);
-      mma256<kKmajorB>(acc, ah, bl);
-      mma256<kKmajorB>(acc, al, bh);
+      wgmma::mma_m64n256k16(acc, ah, bl);
+      wgmma::mma_m64n256k16(acc, al, bh);
     }
   }
 }
@@ -337,7 +327,7 @@ __device__ __forceinline__ void mma_stage(const unsigned char* st,
 // odd multiple of 128 copies 128 columns of B: its product's columns
 // 128.. are never read.  kFeed: the consumers only wait and release (the
 // copy rate alone; out and the checksums are not computed).
-template <bool kSplitMode, bool kFeed, bool kKmajorB = false>
+template <bool kSplitMode, bool kFeed>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 dots_mma_kernel(const MmaOps op, int M, int Kp, int N, int reps, int nsplit,
                 float* outp, double* csp) {
@@ -399,8 +389,7 @@ dots_mma_kernel(const MmaOps op, int M, int Kp, int N, int reps, int nsplit,
         if (!kFeed) {
           wgmma::fence_operands(acc);
           wgmma::fence();
-          mma_stage<kSplitMode, kKmajorB>(ring + s * kMmaStageBytes, acc,
-                                          wr);
+          mma_stage<kSplitMode>(ring + s * kMmaStageBytes, acc, wr);
           wgmma::commit();
           wgmma::wait<0>();
           wgmma::fence_operands(acc);
@@ -444,10 +433,10 @@ dots_mma_kernel(const MmaOps op, int M, int Kp, int N, int reps, int nsplit,
   }
 }
 
-template <bool kSplitMode, bool kFeed, bool kKmajorB = false>
+template <bool kSplitMode, bool kFeed>
 int launch_mma(const MmaOps& op, int M, int Kp, int N, int reps, int nsplit,
                float* outp, double* csp, cudaStream_t stream) {
-  auto kern = dots_mma_kernel<kSplitMode, kFeed, kKmajorB>;
+  auto kern = dots_mma_kernel<kSplitMode, kFeed>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem);
   if (err != cudaSuccess) return (int)err;
@@ -520,548 +509,6 @@ stream_kernel(const float4* t2, long long n_t2, const float4* ov,
   if (threadIdx.x == 0) partial[blockIdx.x] = tot;
 }
 
-
-// ===========================================================================
-// Alternatives of the dots kernel, timed against it by
-// pyscf_mpcc_tpu_torch/tools/p3_alternatives.py and selected by
-// probe_dots_variant():
-//   1  f32, 128 x 256 tile, 8 x 16 outputs a thread, 256 threads, one
-//      block an SM
-//   2  f32, 128 x 256 tile, 8 x 8 outputs a thread, 512 threads (a warp
-//      reads one address of a^T a step)
-//   3  f32, 64 x 256 tile, 8 x 8, 256 threads, two blocks an SM (timing
-//      only: out and the checksums are not computed)
-//   4  split/bf16, four consumer warpgroups of 64 x 128 (m64n128k16)
-//   5  the same, one wgmma group kept in flight (wait<1>)
-//   6  split/bf16, B read with the transpose flag 0 (timing only)
-// ===========================================================================
-int g_variant = 0;
-
-constexpr int kWgN = 128;           // columns of one warpgroup (variant 4)
-constexpr int kV4Consumers = 4;
-constexpr int kV4Producer = 4 * kV4Consumers;
-constexpr int kV4Threads = 32 * (kV4Producer + 1);
-
-// warpgroup (wr, wc)'s 64 x 128 product of the staged chunk, added to acc
-template <bool kSplitMode>
-__device__ __forceinline__ void mma_stage128(const unsigned char* st,
-                                          float (&acc)[64], int wr, int wc) {
-  using Tl = DotTile<kSplitMode>;
-  const uint32_t a0 = wgmma::smem_u32(st) + wr * 8 * Tl::SBO;
-  const uint32_t b0 = wgmma::smem_u32(st) + Tl::H * Tl::A_HALF + wc * (kWgN * Tl::KC * 2);
-#pragma unroll
-  for (int s = 0; s < Tl::KC / 16; ++s) {     // k16 steps: 2 core matrices
-    const uint64_t ah = wgmma::desc(a0 + 256 * s, 128, Tl::SBO);
-    const uint64_t bh = wgmma::desc(b0 + 256 * s, 128, Tl::SBO);
-    wgmma::mma_m64n128k16(acc, ah, bh);
-    if (kSplitMode) {
-      const uint64_t al = wgmma::desc(a0 + Tl::A_HALF + 256 * s, 128, Tl::SBO);
-      const uint64_t bl = wgmma::desc(b0 + Tl::B_HALF + 256 * s, 128, Tl::SBO);
-      wgmma::mma_m64n128k16(acc, ah, bl);
-      wgmma::mma_m64n128k16(acc, al, bh);
-    }
-  }
-}
-
-// Tiled operands (Kp = K padded to KC): a (Kp/KC, M/8, KC/8, 8, 8), b
-// (Kp/KC, N/8, KC/8, 8, 8).  One producer warp (its lane 0) issues the
-// bulk copies of each stage into a ring of kMmaStages, counted by the
-// stage's full barrier; the 16 consumer warps wait on it, multiply, and
-// release the stage on its empty barrier.  kFeed: the consumers only
-// wait and release (the copy rate alone; out and the checksum are not
-// computed).
-template <bool kSplitMode, bool kPipe>
-__global__ void __launch_bounds__(kV4Threads, 1)
-dots_mma128_kernel(const MmaOps op, int M, int Kp, int N, int reps, int nsplit,
-                float* outp, double* csp) {
-  using Tl = DotTile<kSplitMode>;
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ uint64_t full[kMmaStages], empty[kMmaStages];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mt = M / kMmaBM, nct = N / kCsTile;
-  const Work w = work_of(mt, mt * ((N + kMmaBN - 1) / kMmaBN), nsplit, reps);
-  const int m0 = w.tm * kMmaBM, n0 = w.tn * kMmaBN;
-  const int nk = Kp / Tl::KC;
-  const int total = (w.r1 - w.r0) * nk;       // stages over the group
-  if (tid == 0) {
-    for (int s = 0; s < kMmaStages; ++s) {
-      wgmma::mbar_init(&full[s], 1);
-      wgmma::mbar_init(&empty[s], 4 * kV4Consumers);
-    }
-    wgmma::mbar_init_fence();
-  }
-  __syncthreads();
-  double csum = 0.0;
-  int wc = 0;
-  if (warp == kV4Producer) {
-    if (lane == 0) {
-      const uint32_t bbytes = min(kMmaBN, N - n0) * Tl::KC * 2;
-#pragma unroll 1
-      for (int it = 0; it < total; ++it) {
-        const int s = it % kMmaStages, c = it % nk;
-        wgmma::mbar_wait(&empty[s], ((it / kMmaStages) & 1) ^ 1);
-        unsigned char* st = ring + s * kMmaStageBytes;
-        const long long aoff = ((long long)c * M + m0) * Tl::KC * 2;
-        const long long boff = ((long long)c * N + n0) * Tl::KC * 2;
-        wgmma::mbar_expect_tx(&full[s], Tl::H * (Tl::A_HALF + bbytes));
-#pragma unroll
-        for (int h = 0; h < Tl::H; ++h) {
-          wgmma::bulk_copy(st + h * Tl::A_HALF, op.a[h] + aoff, Tl::A_HALF,
-                           &full[s]);
-          wgmma::bulk_copy(st + Tl::H * Tl::A_HALF + h * Tl::B_HALF,
-                           op.b[h] + boff, bbytes, &full[s]);
-        }
-      }
-    }
-    __syncwarp();
-  } else {
-    const int wg = warp >> 2, wr = wg & 1, wq = warp & 3;
-    wc = wg >> 1;
-    const int g8 = lane >> 2, q = lane & 3;
-    // uniform per warpgroup: a last block of an N that is an odd multiple
-    // of 128 has no columns for warpgroups wc = 1
-    const bool active = n0 + kWgN * wc < N;
-    float* out = outp + (long long)w.g * M * kOutCols;
-    float acc[64];
-    int it = 0, pend = -1;
-#pragma unroll 1
-    for (int rep = w.r0; rep < w.r1; ++rep) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-#pragma unroll 1
-      for (int c = 0; c < nk; ++c, ++it) {
-        const int s = it % kMmaStages;
-        wgmma::mbar_wait(&full[s], (it / kMmaStages) & 1);
-        __syncwarp();
-        if (active) {
-          wgmma::fence_operands(acc);
-          wgmma::fence();
-          mma_stage128<kSplitMode>(ring + s * kMmaStageBytes, acc, wr, wc);
-          wgmma::commit();
-          if (kPipe) wgmma::wait<1>(); else wgmma::wait<0>();
-          wgmma::fence_operands(acc);
-        }
-        __syncwarp();
-        if (kPipe) {
-          if (pend >= 0 && lane == 0) wgmma::mbar_arrive(&empty[pend]);
-          pend = s;
-        } else if (lane == 0) {
-          wgmma::mbar_arrive(&empty[s]);
-        }
-      }
-      if (kPipe) {
-        if (active) {
-          wgmma::wait<0>();
-          wgmma::fence_operands(acc);
-        }
-        __syncwarp();
-        if (lane == 0) wgmma::mbar_arrive(&empty[pend]);
-        pend = -1;
-      }
-      // a repeat ends: acc[4 j + 2 h + e] is C[16 wq + g8 + 8 h][8 j + 2 q
-      // + e] of the warpgroup's 64 x 128 tile
-#pragma unroll
-      for (int i = 0; i < 64; ++i) csum += (double)acc[i];
-      if (active && w.tn == 0 && wc == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = m0 + 64 * wr + 16 * wq + g8 + 8 * h;
-          float2* p = reinterpret_cast<float2*>(out + (long long)r * kOutCols);
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-            if (rep > w.r0) {
-              const float2 o = p[4 * j + q];
-              v.x += o.x;
-              v.y += o.y;
-            }
-            p[4 * j + q] = v;
-          }
-        }
-      }
-    }
-  }
-  // the block's two checksum tiles, each the sum over its two warpgroups
-  const double s0 = block_sum(wc == 0 ? csum : 0.0);
-  __syncthreads();            // block_sum's shared scratch is reused
-  const double s1 = block_sum(wc == 1 ? csum : 0.0);
-  if (tid == 0) {
-    double* cs = csp + ((long long)w.g * mt + w.tm) * nct + 2 * w.tn;
-    cs[0] = s0;
-    if (2 * w.tn + 1 < nct) cs[1] = s1;
-  }
-}
-
-
-template <bool kSplitMode, bool kPipe>
-int launch_mma128(const MmaOps& op, int M, int Kp, int N, int reps,
-                  int nsplit, float* outp, double* csp, cudaStream_t stream) {
-  auto kern = dots_mma128_kernel<kSplitMode, kPipe>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int ntile = (M / kMmaBM) * ((N + kMmaBN - 1) / kMmaBN);
-  kern<<<ntile * nsplit, kV4Threads, kMmaSmem, stream>>>(
-      op, M, Kp, N, reps, nsplit, outp, csp);
-  return (int)cudaGetLastError();
-}
-
-// ---- variant 1: f32, 8 x 16 a thread ---------------------------------------
-constexpr int kF2BN = 256;
-constexpr int kF2Stages = 3;
-constexpr int kF2StageFloats = kFfmaBK * (kFfmaTile + kF2BN);
-constexpr int kF2Smem = kF2Stages * kF2StageFloats * 4;
-
-template <int kThreads>
-__device__ __forceinline__ void f2_stage(float* st, const float* aT,
-                                         const float* b, int K, int M,
-                                         int N, int m0, int n0, int k0) {
-#pragma unroll
-  for (int u = 0; u < 1536 / kThreads; ++u) {
-    const int e = threadIdx.x + u * kThreads;
-    const bool isb = e >= 512;
-    const int p = isb ? e - 512 : e;
-    const int r = isb ? p / 64 : p / 32;
-    const int c = isb ? (p % 64) * 4 : (p % 32) * 4;
-    const int k = k0 + r;
-    const bool ok = k < K && (!isb || n0 + c < N);
-    const float* src = isb ? b + (long long)k * N + n0 + c
-                           : aT + (long long)k * M + m0 + c;
-    cp_async16(st + (isb ? kFfmaBK * kFfmaTile + r * kF2BN : r * kFfmaTile)
-                   + c, ok ? src : aT, ok);
-  }
-}
-
-struct Frag2 {
-  float4 a0, a1, b0, b1, b2, b3;
-};
-
-__device__ __forceinline__ void f2_frag(Frag2& f, const float* st, int kk,
-                                        int ty, int tx) {
-  const float* sa = st + kk * kFfmaTile;
-  const float* sb = st + kFfmaBK * kFfmaTile + kk * kF2BN;
-  f.a0 = *reinterpret_cast<const float4*>(sa + 4 * ty);
-  f.a1 = *reinterpret_cast<const float4*>(sa + 64 + 4 * ty);
-  f.b0 = *reinterpret_cast<const float4*>(sb + 4 * tx);
-  f.b1 = *reinterpret_cast<const float4*>(sb + 64 + 4 * tx);
-  f.b2 = *reinterpret_cast<const float4*>(sb + 128 + 4 * tx);
-  f.b3 = *reinterpret_cast<const float4*>(sb + 192 + 4 * tx);
-}
-
-__device__ __forceinline__ void f2_step(float (&acc)[8][16], const Frag2& f) {
-  const float a[8] = {f.a0.x, f.a0.y, f.a0.z, f.a0.w,
-                      f.a1.x, f.a1.y, f.a1.z, f.a1.w};
-  const float b[16] = {f.b0.x, f.b0.y, f.b0.z, f.b0.w,
-                       f.b1.x, f.b1.y, f.b1.z, f.b1.w,
-                       f.b2.x, f.b2.y, f.b2.z, f.b2.w,
-                       f.b3.x, f.b3.y, f.b3.z, f.b3.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-}
-
-// out and the two checksum tiles of a 128 x 256 block: a thread's rows
-// r(i), its columns 4 tx + j in the first 128 (acc[i][j], j < 4, and
-// 64 + 4 tx + j for variant 1), the rest in the second tile
-__global__ void __launch_bounds__(kFfmaThreads, 1)
-dots_f2_kernel(const float* aT, const float* b, int M, int K, int N,
-               int reps, int nsplit, float* outp, double* csp) {
-  extern __shared__ __align__(16) float smem[];
-  const int mt = M / kFfmaTile, nct = N / kCsTile;
-  const Work w = work_of(mt, mt * ((N + kF2BN - 1) / kF2BN), nsplit, reps);
-  const int m0 = w.tm * kFfmaTile, n0 = w.tn * kF2BN;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int nk = (K + kFfmaBK - 1) / kFfmaBK;
-  const int total = (w.r1 - w.r0) * nk;
-  float* out = outp + (long long)w.g * M * kOutCols;
-  float acc[8][16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-  double cs0 = 0.0, cs1 = 0.0;
-#pragma unroll
-  for (int s = 0; s < kF2Stages - 1; ++s) {
-    if (s < total)
-      f2_stage<kFfmaThreads>(smem + s * kF2StageFloats, aT, b, K, M, N, m0,
-                             n0, (s % nk) * kFfmaBK);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kF2Stages - 2>();
-    __syncthreads();
-    const int nx = it + kF2Stages - 1;
-    if (nx < total)
-      f2_stage<kFfmaThreads>(smem + (nx % kF2Stages) * kF2StageFloats, aT, b,
-                             K, M, N, m0, n0, (nx % nk) * kFfmaBK);
-    cp_async_commit();
-    const float* st = smem + (it % kF2Stages) * kF2StageFloats;
-    Frag2 f[2];
-    f2_frag(f[0], st, 0, ty, tx);
-#pragma unroll
-    for (int kk = 0; kk < kFfmaBK; ++kk) {
-      if (kk + 1 < kFfmaBK) f2_frag(f[(kk + 1) & 1], st, kk + 1, ty, tx);
-      f2_step(acc, f[kk & 1]);
-    }
-    if (it % nk != nk - 1) continue;
-    const bool first = it < nk;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cs0 += (double)acc[i][j];
-        cs1 += (double)acc[i][8 + j];
-      }
-      if (w.tn == 0) {
-        const int r = m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i);
-        float4* p = reinterpret_cast<float4*>(out + (long long)r * kOutCols);
-        float4 v0 = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        float4 v1 = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-        if (!first) {
-          const float4 o0 = p[tx], o1 = p[16 + tx];
-          v0.x += o0.x; v0.y += o0.y; v0.z += o0.z; v0.w += o0.w;
-          v1.x += o1.x; v1.y += o1.y; v1.z += o1.z; v1.w += o1.w;
-        }
-        p[tx] = v0;
-        p[16 + tx] = v1;
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-    }
-  }
-  const double s0 = block_sum(cs0);
-  __syncthreads();
-  const double s1 = block_sum(cs1);
-  if (threadIdx.x == 0) {
-    double* cs = csp + ((long long)w.g * mt + w.tm) * nct + 2 * w.tn;
-    cs[0] = s0;
-    if (2 * w.tn + 1 < nct) cs[1] = s1;
-  }
-}
-
-// ---- variant 2: f32, 512 threads, 8 x 8 a thread ---------------------------
-constexpr int kF3Threads = 512;
-
-__global__ void __launch_bounds__(kF3Threads, 1)
-dots_f3_kernel(const float* aT, const float* b, int M, int K, int N,
-               int reps, int nsplit, float* outp, double* csp) {
-  extern __shared__ __align__(16) float smem[];
-  const int mt = M / kFfmaTile, nct = N / kCsTile;
-  const Work w = work_of(mt, mt * ((N + kF2BN - 1) / kF2BN), nsplit, reps);
-  const int m0 = w.tm * kFfmaTile, n0 = w.tn * kF2BN;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
-  const int nk = (K + kFfmaBK - 1) / kFfmaBK;
-  const int total = (w.r1 - w.r0) * nk;
-  float* out = outp + (long long)w.g * M * kOutCols;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  double cs0 = 0.0, cs1 = 0.0;
-#pragma unroll
-  for (int s = 0; s < kF2Stages - 1; ++s) {
-    if (s < total)
-      f2_stage<kF3Threads>(smem + s * kF2StageFloats, aT, b, K, M, N, m0,
-                           n0, (s % nk) * kFfmaBK);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kF2Stages - 2>();
-    __syncthreads();
-    const int nx = it + kF2Stages - 1;
-    if (nx < total)
-      f2_stage<kF3Threads>(smem + (nx % kF2Stages) * kF2StageFloats, aT, b,
-                           K, M, N, m0, n0, (nx % nk) * kFfmaBK);
-    cp_async_commit();
-    const float* st = smem + (it % kF2Stages) * kF2StageFloats;
-    Frag f[2];
-#pragma unroll
-    for (int kk = 0; kk < kFfmaBK; ++kk) {
-      Frag& fr = f[kk & 1];
-      const float* sa = st + kk * kFfmaTile;
-      const float* sb = st + kFfmaBK * kFfmaTile + kk * kF2BN;
-      fr.a0 = *reinterpret_cast<const float4*>(sa + 4 * ty);
-      fr.a1 = *reinterpret_cast<const float4*>(sa + 64 + 4 * ty);
-      fr.b0 = *reinterpret_cast<const float4*>(sb + 4 * tx);
-      fr.b1 = *reinterpret_cast<const float4*>(sb + 128 + 4 * tx);
-      ffma_step(acc, fr);
-    }
-    if (it % nk != nk - 1) continue;
-    const bool first = it < nk;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        cs0 += (double)acc[i][j];
-        cs1 += (double)acc[i][4 + j];
-      }
-      if (w.tn == 0) {
-        const int r = m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i);
-        float4* p = reinterpret_cast<float4*>(out + (long long)r * kOutCols);
-        float4 v0 = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        if (!first) {
-          const float4 o0 = p[tx];
-          v0.x += o0.x; v0.y += o0.y; v0.z += o0.z; v0.w += o0.w;
-        }
-        p[tx] = v0;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-  }
-  const double s0 = block_sum(cs0);
-  __syncthreads();
-  const double s1 = block_sum(cs1);
-  if (threadIdx.x == 0) {
-    double* cs = csp + ((long long)w.g * mt + w.tm) * nct + 2 * w.tn;
-    cs[0] = s0;
-    if (2 * w.tn + 1 < nct) cs[1] = s1;
-  }
-}
-
-// ---- variant 3: f32, 64 x 256 tile, two blocks an SM (timing only) ---------
-constexpr int kF4BM = 64, kF4BN = 256, kF4Stages = 3;
-constexpr int kF4StageFloats = kFfmaBK * (kF4BM + kF4BN);
-constexpr int kF4Smem = kF4Stages * kF4StageFloats * 4;
-
-__device__ __forceinline__ void f4_stage(float* st, const float* aT,
-                                         const float* b, int K, int M,
-                                         int N, int m0, int n0, int k0) {
-#pragma unroll
-  for (int u = 0; u < 5; ++u) {
-    const int e = threadIdx.x + u * kFfmaThreads;
-    const bool isb = e >= 256;
-    const int p = isb ? e - 256 : e;
-    const int r = isb ? p / 64 : p / 16;
-    const int c = isb ? (p % 64) * 4 : (p % 16) * 4;
-    const int k = k0 + r;
-    const bool ok = k < K && (!isb || n0 + c < N);
-    const float* src = isb ? b + (long long)k * N + n0 + c
-                           : aT + (long long)k * M + m0 + c;
-    cp_async16(st + (isb ? kFfmaBK * kF4BM + r * kF4BN : r * kF4BM) + c,
-               ok ? src : aT, ok);
-  }
-}
-
-__global__ void __launch_bounds__(kFfmaThreads, 2)
-dots_f4_kernel(const float* aT, const float* b, int M, int K, int N,
-               int reps, int nsplit, double* csp) {
-  extern __shared__ __align__(16) float smem[];
-  const int mt = M / kF4BM;
-  const Work w = work_of(mt, mt * ((N + kF4BN - 1) / kF4BN), nsplit, reps);
-  const int m0 = w.tm * kF4BM, n0 = w.tn * kF4BN;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
-  const int nk = (K + kFfmaBK - 1) / kFfmaBK;
-  const int total = (w.r1 - w.r0) * nk;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  double cs0 = 0.0;
-#pragma unroll
-  for (int s = 0; s < kF4Stages - 1; ++s) {
-    if (s < total)
-      f4_stage(smem + s * kF4StageFloats, aT, b, K, M, N, m0, n0,
-               (s % nk) * kFfmaBK);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kF4Stages - 2>();
-    __syncthreads();
-    const int nx = it + kF4Stages - 1;
-    if (nx < total)
-      f4_stage(smem + (nx % kF4Stages) * kF4StageFloats, aT, b, K, M, N, m0,
-               n0, (nx % nk) * kFfmaBK);
-    cp_async_commit();
-    const float* st = smem + (it % kF4Stages) * kF4StageFloats;
-    Frag f[2];
-#pragma unroll
-    for (int kk = 0; kk < kFfmaBK; ++kk) {
-      Frag& fr = f[kk & 1];
-      const float* sa = st + kk * kF4BM;
-      const float* sb = st + kFfmaBK * kF4BM + kk * kF4BN;
-      fr.a0 = *reinterpret_cast<const float4*>(sa + 4 * ty);
-      fr.a1 = *reinterpret_cast<const float4*>(sa + 32 + 4 * ty);
-      fr.b0 = *reinterpret_cast<const float4*>(sb + 4 * tx);
-      fr.b1 = *reinterpret_cast<const float4*>(sb + 128 + 4 * tx);
-      ffma_step(acc, fr);
-    }
-    if (it % nk != nk - 1) continue;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cs0 += (double)acc[i][j];
-        acc[i][j] = 0.f;
-      }
-  }
-  const double s0 = block_sum(cs0);
-  if (threadIdx.x == 0) csp[blockIdx.x] = s0;   // a slot a block
-}
-
-template <typename Kern>
-int launch_alt_f32(Kern kern, int threads, int smem, int bm, int bn,
-                   const float* aT, const float* b, int M, int K, int N,
-                   int reps, int nsplit, float* outp, double* csp,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int ntile = (M / bm) * ((N + bn - 1) / bn);
-  kern<<<ntile * nsplit, threads, smem, stream>>>(aT, b, M, K, N, reps,
-                                                  nsplit, outp, csp);
-  return (int)cudaGetLastError();
-}
-
-// variants 1-3 in mode f32 (-1: none)
-int launch_f32_variant(const float* aT, const float* b, int M, int K, int N,
-                       int reps, int nsplit, float* outp, double* csp,
-                       cudaStream_t stream) {
-  if (g_variant == 1)
-    return launch_alt_f32(dots_f2_kernel, kFfmaThreads, kF2Smem, kFfmaTile,
-                          kF2BN, aT, b, M, K, N, reps, nsplit, outp, csp,
-                          stream);
-  if (g_variant == 2)
-    return launch_alt_f32(dots_f3_kernel, kF3Threads, kF2Smem, kFfmaTile,
-                          kF2BN, aT, b, M, K, N, reps, nsplit, outp, csp,
-                          stream);
-  if (g_variant == 3) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dots_f4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kF4Smem);
-    if (err != cudaSuccess) return (int)err;
-    const int ntile = (M / kF4BM) * ((N + kF4BN - 1) / kF4BN);
-    // csp holds nsplit (M/128) (N/128) slots, more than ntile nsplit
-    dots_f4_kernel<<<ntile * nsplit, kFfmaThreads, kF4Smem, stream>>>(
-        aT, b, M, K, N, reps, nsplit, csp);
-    return (int)cudaGetLastError();
-  }
-  return -1;
-}
-
-// variants 4-6 in modes split and bf16 (-1: none)
-template <bool kSplitMode>
-int launch_mma_variant(const MmaOps& op, int M, int Kp, int N, int reps,
-                       int nsplit, float* outp, double* csp,
-                       cudaStream_t stream) {
-  if (g_variant == 4)
-    return launch_mma128<kSplitMode, false>(op, M, Kp, N, reps, nsplit, outp,
-                                            csp, stream);
-  if (g_variant == 5)
-    return launch_mma128<kSplitMode, true>(op, M, Kp, N, reps, nsplit, outp,
-                                           csp, stream);
-  if (g_variant == 6)
-    return launch_mma<kSplitMode, false, true>(op, M, Kp, N, reps, nsplit,
-                                               outp, csp, stream);
-  return -1;
-}
-
 template <bool kSplitMode>
 int mma_blocks_per_sm(int* blocks) {
   auto kern = dots_mma_kernel<kSplitMode, false>;
@@ -1075,10 +522,6 @@ int mma_blocks_per_sm(int* blocks) {
 }  // namespace
 
 extern "C" {
-
-// select an alternative of the dots kernel (0: the kernel itself; see the
-// list above the alternatives)
-void probe_dots_variant(int v) { g_variant = v; }
 
 int probe_dispatch(const void* x, void* out, int gx, int gy, void* stream) {
   dispatch_kernel<<<dim3(gx, gy), 32, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -1165,10 +608,6 @@ int probe_dots(int mode, int feed, const void* a, const void* a_lo,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kF32) {
     if (feed) return (int)cudaErrorInvalidValue;
-    const int v = launch_f32_variant(static_cast<const float*>(a),
-                                     static_cast<const float*>(b), M, K, N,
-                                     reps, nsplit, po, pc, s);
-    if (v >= 0) return v;
     return launch_ffma(static_cast<const float*>(a),
                        static_cast<const float*>(b), M, K, N, reps, nsplit,
                        po, pc, s);
@@ -1178,22 +617,12 @@ int probe_dots(int mode, int feed, const void* a, const void* a_lo,
                      {static_cast<Bytes>(b), static_cast<Bytes>(b_lo)}};
   if (mode == kSplit) {
     if (K % DotTile<true>::KC) return (int)cudaErrorInvalidValue;
-    if (!feed && g_variant >= 4) {
-      const int v = launch_mma_variant<true>(op, M, K, N, reps, nsplit, po,
-                                             pc, s);
-      if (v >= 0) return v;
-    }
     return feed ? launch_mma<true, true>(op, M, K, N, reps, nsplit, po, pc, s)
                 : launch_mma<true, false>(op, M, K, N, reps, nsplit, po, pc,
                                           s);
   }
   if (mode == kBf16) {
     if (K % DotTile<false>::KC) return (int)cudaErrorInvalidValue;
-    if (!feed && g_variant >= 4) {
-      const int v = launch_mma_variant<false>(op, M, K, N, reps, nsplit, po,
-                                              pc, s);
-      if (v >= 0) return v;
-    }
     return feed ? launch_mma<false, true>(op, M, K, N, reps, nsplit, po, pc,
                                           s)
                 : launch_mma<false, false>(op, M, K, N, reps, nsplit, po, pc,

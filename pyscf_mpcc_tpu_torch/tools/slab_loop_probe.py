@@ -51,6 +51,9 @@ def _lib():
     lib.slab_relayout.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.slab_relayout.restype = ctypes.c_int
+    pint = ctypes.POINTER(ctypes.c_int)
+    lib.slab_relayout_block.argtypes = [pint, pint]
+    lib.slab_relayout_block.restype = ctypes.c_int
     threads, pieces = ctypes.c_int(0), ctypes.c_int(0)
     lib.slab_relayout_block(ctypes.byref(threads), ctypes.byref(pieces))
     if (threads.value, pieces.value) != (THREADS, PIECES):
@@ -113,8 +116,8 @@ def main(device=None):
         del flush
     nbyte = 2 * w.numel() * w.element_size()
     gbs = None if ms is None else nbyte / ms / 1e6
-    print(f"OK value={value:.6f} ms={_fmt(ms, 5)} (cold), {_fmt(ms_warm, 5)} "
-          f"(warm) GB/s={_fmt(gbs, 0)} (cold)", flush=True)
+    print(f"OK value={value:.6f} ms={_fmt(ms, 5)} (cold), "
+          f"{_fmt(ms_warm, 5)} (warm) GB/s={_fmt(gbs, 0)} (cold)", flush=True)
     print(f"expected={expect:.6f}", flush=True)
     return dict(value=value, expect=expect, ms=ms, ms_warm=ms_warm,
                 rate=gbs, unit="GB/s (read + write, cold)", bytes=nbyte)
