@@ -1,23 +1,28 @@
 """User-facing CCSD method object.
 
 Port of the restricted part of ``pyscf_mpcc_tpu/cc/driver.py``:
-``CCSD(mf, device=...).run()`` then ``.ccsd_t()``.  Frozen core via an
-integer ``frozen`` (lowest orbitals dropped from the correlation space).
-The device defaults to CUDA (lib/device.resolve; pass
-``device=torch.device("cpu")`` for the CPU); the dtype follows lib/device
-(fp64 on the CPU, fp32 with TF32 off on CUDA) unless given.
+``CCSD(mf, device=...).run()``, then ``.ccsd_t()``, ``.solve_lambda()``,
+``.make_rdm1()``/``make_rdm2()``/``make_rdm12()``, the T1/D1/D2
+diagnostics, chk and DIIS-ring restarts and the geometry scanner
+(``as_scanner``).  Frozen core via an integer ``frozen`` (lowest orbitals
+dropped from the correlation space).  The device defaults to CUDA
+(lib/device.resolve; pass ``device=torch.device("cpu")`` for the CPU); the
+dtype follows lib/device (fp64 on the CPU, fp32 with TF32 off on CUDA)
+unless given.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from pyscf_mpcc_tpu_torch import config, gto
+from pyscf_mpcc_tpu_torch import ao2mo, config, gto
+from pyscf_mpcc_tpu_torch.convert import to_numpy
 from pyscf_mpcc_tpu_torch.lib import logger
 from pyscf_mpcc_tpu_torch.lib.stream import StreamObject
 from pyscf_mpcc_tpu_torch.cc import ccsd_t as ccsd_t_mod
 from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
-from pyscf_mpcc_tpu_torch.cc import rccsd
+from pyscf_mpcc_tpu_torch.cc import lambda_ad, rccsd
 from pyscf_mpcc_tpu_torch.lib import device as _dev
 from pyscf_mpcc_tpu_torch.scf.hf import RHF
 
@@ -49,6 +54,7 @@ class RCCSDDriver(StreamObject):
         self.nmo = self.mo_coeff.shape[1] - self.frozen
         self.e_corr = None
         self.t1 = self.t2 = None
+        self.l1 = self.l2 = None
         self.converged = False
         self.eris = None
         self._eri_ao = None
@@ -89,7 +95,9 @@ class RCCSDDriver(StreamObject):
             eris, max_cycle=self.max_cycle, conv_tol=self.conv_tol,
             conv_tol_normt=self.conv_tol_normt, diis_space=self.diis_space,
             level_shift=self.level_shift, t1=t1, t2=t2,
-            ntile=max(ntile, 1), diis_file=self.diis_file)
+            ntile=max(ntile, 1), adiis=getattr(self, "_adiis", None),
+            diis_file=self.diis_file)
+        self._adiis = None
         log.timer("CCSD iterations", *tic)
         return self.e_corr, self.t1, self.t2
 
@@ -113,21 +121,138 @@ class RCCSDDriver(StreamObject):
                                  t2 if t2 is not None else self.t2,
                                  eris, tile=tile)
 
-    def solve_lambda(self, *args, **kwargs):
-        _not_ported("Lambda (cc/lambda_ad)", "A6")
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                               device=self.device)
 
-    def make_rdm1(self, *args, **kwargs):
-        _not_ported("CCSD RDMs (cc/lambda_ad.make_rdm12)", "A6")
+    def solve_lambda(self, t1=None, t2=None, eris=None):
+        if eris is None:
+            eris = self.eris or self.ao2mo()
+        ntile = self.ntile
+        if not ntile and eris.Lvv is not None:
+            # the backward pass keeps a W block and its cotangent live, so
+            # plan a finer tiling than the forward solve
+            from pyscf_mpcc_tpu_torch.lib import memory as _mem
+            ntile = _mem.plan_ladder_ntile(self.nocc, self.nmo - self.nocc,
+                                           eris.Lvv.shape[0], self.dtype,
+                                           vjp=True, device=self.device)
+        conv, self.l1, self.l2 = lambda_ad.kernel(
+            t1 if t1 is not None else self.t1,
+            t2 if t2 is not None else self.t2, eris,
+            conv_tol=self.conv_tol_normt, max_cycle=self.max_cycle,
+            ntile=max(ntile, 1))
+        return self.l1, self.l2
 
-    make_rdm2 = make_rdm12 = make_rdm1
+    def make_rdm12(self):
+        """(rdm1, rdm2) in the MO basis of the correlated orbitals, from
+        the full (incore) integrals on the driver's device and dtype."""
+        if self.l1 is None:
+            self.solve_lambda()
+        mo = self.mo_coeff[:, self.frozen:]
+        if self._eri_ao is None:
+            self._eri_ao = gto.intor_eri(self.mol)
+        h_mo = self._tensor(mo.T @ self._scf.get_hcore() @ mo)
+        mo64 = torch.as_tensor(mo, dtype=torch.float64, device=self.device)
+        eri_mo = ao2mo.full(torch.as_tensor(self._eri_ao, dtype=torch.float64,
+                                            device=self.device), mo64)
+        return lambda_ad.make_rdm12(h_mo, eri_mo.to(self.dtype), self.t1,
+                                    self.t2, self.l1, self.l2, self.nocc)
+
+    def make_rdm1(self):
+        return self.make_rdm12()[0]
+
+    def make_rdm2(self):
+        return self.make_rdm12()[1]
 
     def eeccsd(self, *args, **kwargs):
         _not_ported("EOM-CCSD (cc/eom)", "A14")
 
     ipccsd = eaccsd = eomsf_ccsd = eeccsd
 
+    def dump_chk(self, path, key="ccsd"):
+        """Checkpoint the solution (e_corr, t1, t2, mo_coeff) to HDF5, in
+        the JAX package's format."""
+        from pyscf_mpcc_tpu_torch.lib import chkfile
+        chkfile.dump_cc(path, self.e_corr, to_numpy(self.t1),
+                        to_numpy(self.t2), mo_coeff=self.mo_coeff, key=key)
+
+    def restore_from_chk(self, path, key="ccsd"):
+        """Warm-start amplitudes from a checkpoint, on the driver's device
+        and dtype."""
+        from pyscf_mpcc_tpu_torch.lib import chkfile
+        data = chkfile.load_cc(path, key=key)
+        self.t1 = self._tensor(data["t1"])
+        self.t2 = self._tensor(data["t2"])
+        return self
+
+    def restore_from_diis_(self, path):
+        """Resume from a spilled host DIIS ring (the .npz ``diis_file``
+        writes): the next ``kernel()`` starts from the ring's last
+        extrapolated amplitudes with its history intact."""
+        from pyscf_mpcc_tpu_torch.lib.diis import DIIS
+        self._adiis = DIIS.restore(path)
+        return self
+
+    # ---------------------------------------------------- diagnostics
+    def get_t1_diagnostic(self):
+        """T1 amplitude norm per correlated electron."""
+        t1 = self.t1
+        return float(torch.sqrt(torch.linalg.norm(t1) ** 2
+                                / (2 * t1.shape[0])))
+
+    def get_d1_diagnostic(self):
+        """D1 diagnostic, Janssen et al. CPL 290 (1998) 423."""
+        t1 = self.t1
+        dij = torch.linalg.eigvalsh(torch.einsum("ia,ja->ij", t1, t1)).max()
+        dab = torch.linalg.eigvalsh(torch.einsum("ia,ib->ab", t1, t1)).max()
+        return float(torch.sqrt(torch.maximum(dij, dab)))
+
+    def get_d2_diagnostic(self):
+        """D2 diagnostic, Nielsen et al. CPL 310 (1999) 568."""
+        t2 = self.t2
+        dij = torch.linalg.eigvalsh(
+            torch.einsum("ikab,jkab->ij", t2, t2)).max()
+        dab = torch.linalg.eigvalsh(
+            torch.einsum("ijac,ijbc->ab", t2, t2)).max()
+        return float(torch.sqrt(torch.maximum(dij, dab)))
+
     def as_scanner(self):
-        _not_ported("the CCSD geometry scanner", "A7")
+        """CCSD geometry scanner; see CCSDScanner."""
+        return CCSDScanner(self)
+
+
+class CCSDScanner:
+    """Callable PES scanner over CCSD solutions: ``scanner(mol_or_atom)``
+    runs the SCF scanner, then solves CCSD seeded with the previous
+    geometry's amplitudes (same orbital dimensions required; otherwise a
+    cold MP2 start).  Each call makes a fresh driver, ``scanner.cc``, on the
+    template driver's device and dtype."""
+
+    def __init__(self, cc):
+        self.cc = cc
+        self._mf_scan = cc._scf.as_scanner()
+        self.e_tot = None
+        self.converged = cc.converged
+
+    def __call__(self, mol_or_atom, dm0=None):
+        old = self.cc
+        self._mf_scan(mol_or_atom, dm0=dm0)
+        mf = self._mf_scan.mf
+        cc = type(old)(mf, frozen=old.frozen, device=old.device,
+                       dtype=old.dtype)
+        for k in ("conv_tol", "conv_tol_normt", "max_cycle", "diis_space",
+                  "level_shift", "verbose", "ntile"):
+            setattr(cc, k, getattr(old, k))
+        # the same nao, nelec and frozen give the same amplitude shapes
+        t1 = t2 = None
+        if old.t1 is not None and mf.mol.nao == old.mol.nao \
+                and mf.mol.nelec == old.mol.nelec:
+            t1, t2 = old.t1, old.t2
+        cc.kernel(t1=t1, t2=t2)
+        self.cc = cc
+        self.e_tot = cc.e_tot
+        self.converged = bool(mf.converged and cc.converged)
+        return cc.e_tot
 
 
 def CCSD(mf, frozen=0, mo_coeff=None, *, device=None, dtype=None):

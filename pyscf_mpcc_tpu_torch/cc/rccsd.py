@@ -6,16 +6,23 @@ torch contractions (cuBLAS GEMMs on the card).  The O(nocc^2 nvir^4)
 particle-particle ladder runs from materialized vvvv (small systems) or
 from density-fitted Lvv factors over symmetric virtual tile pairs.
 
-PyTorch runs eagerly, so the JAX package's ``jax.jit``/``jax.checkpoint``
-and ``optimization_barrier`` have no counterpart: the P(ij|ab) pieces of
-the doubles residual accumulate in place into one buffer instead, which
-bounds the number of live t2-sized temporaries the same way.
+PyTorch runs eagerly, so the JAX package's ``jax.jit`` and
+``optimization_barrier`` have no counterpart: the P(ij|ab) pieces of the
+doubles residual accumulate in place into one buffer instead, which bounds
+the number of live t2-sized temporaries the same way.  ``jax.checkpoint``
+becomes ``torch.utils.checkpoint`` around each ladder pair and the ring W
+tensors (``_remat``), engaged only when autograd records the call.
+
+``residual_segments`` splits the residual into the pieces the Λ solver
+(cc/lambda_ad) differentiates one at a time; ``kernel`` iterates the sweep
+with the host DIIS or the device ring (lib/device_diis).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs
 
@@ -106,10 +113,7 @@ def pair_ladder_sym(tau, Ld, ntile):
                     device=tau.device)
     for a in range(ntile):
         for b in range(a + 1):
-            # w[(a,c),(b,d)] = sum_L Ld[L,a,c] Ld[L,b,d]: one GEMM
-            w = (Ld_t[:, a].T @ Ld_t[:, b]).view(tsz, nvp, tsz, nvp)
-            blk = einsum("acbd,ijcd->ijab", w, tau)
-            del w
+            blk = _remat(_pair_block, Ld_t, tau, a, b)
             if a == b:
                 # halve diagonal blocks: the final S + S^T counts them twice
                 blk.mul_(0.5)
@@ -120,6 +124,15 @@ def pair_ladder_sym(tau, Ld, ntile):
     if pad:
         out = out[:, :, :nvir, :nvir].contiguous()
     return out
+
+
+def _pair_block(Ld_t, tau, a, b):
+    """One A >= B block of the ladder: w[(a,c),(b,d)] = sum_L Ld[L,a,c]
+    Ld[L,b,d] as one GEMM, contracted with tau."""
+    nvp = tau.shape[-1]
+    tsz = Ld_t.shape[2] // nvp
+    w = (Ld_t[:, a].T @ Ld_t[:, b]).view(tsz, nvp, tsz, nvp)
+    return einsum("acbd,ijcd->ijab", w, tau)
 
 
 class _OvvvOps:
@@ -186,6 +199,101 @@ class _OvvvOps:
         return einsum("Lia,Ljb->ijab", e.Lov, x)
 
 
+def _remat(fn, *args):
+    """fn(*args), recomputed in the backward pass instead of having its
+    intermediates saved, when autograd records the call (grad mode on and
+    an argument requires grad); a plain call otherwise, so the forward-only
+    CCSD sweep runs as if the wrapper were not there.
+
+    Under autograd a saved 4-index intermediate is what the Lambda step
+    cannot afford: every pair's W block of the ladder (0.82 nvir^4
+    elements, 129 GB in fp32 at the (H2O)8 shape) or the ring W tensors.
+    Each checkpointed call keeps only its arguments (references, no
+    copies) and recomputes its intermediates one at a time in the
+    backward pass."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(a) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _tau(t1, t2, variant="ccsd"):
+    if variant == "cc2":
+        return einsum("ia,jb->ijab", t1, t1)
+    return t2 + einsum("ia,jb->ijab", t1, t1)
+
+
+def _kappa(t1, t2, eris, level_shift=0.0):
+    """Foo, Fvv with the Fock diagonal removed, and Fov (Eqs. 37-39)."""
+    nocc = eris.nocc
+    fock, ovov = eris.fock, eris.ovov
+    Foo = fock[:nocc, :nocc] + 2.0 * einsum("kcld,ilcd->ki", ovov, t2) \
+        - einsum("kdlc,ilcd->ki", ovov, t2) \
+        + 2.0 * einsum("kcld,ic,ld->ki", ovov, t1, t1) \
+        - einsum("kdlc,ic,ld->ki", ovov, t1, t1)
+    Fvv = fock[nocc:, nocc:] - 2.0 * einsum("kcld,klad->ac", ovov, t2) \
+        + einsum("kdlc,klad->ac", ovov, t2) \
+        - 2.0 * einsum("kcld,ka,ld->ac", ovov, t1, t1) \
+        + einsum("kdlc,ka,ld->ac", ovov, t1, t1)
+    Fov = fock[:nocc, nocc:] + 2.0 * einsum("kcld,ld->kc", ovov, t1) \
+        - einsum("kdlc,ld->kc", ovov, t1)
+    return (Foo - torch.diag(eris.mo_energy[:nocc]),
+            Fvv - torch.diag(eris.mo_energy[nocc:] + level_shift), Fov)
+
+
+def _loo_lvv(t1, eris, Foo_nd, Fvv_nd, lvv_t1, variant="ccsd",
+             level_shift=0.0):
+    """Loo, Lvv (Eqs. 40-41); CC2's doubles see only the t1-dressed
+    Fock operator."""
+    nocc = eris.nocc
+    fock, ovoo = eris.fock, eris.ovoo
+    fov = fock[:nocc, nocc:]
+    if variant == "cc2":
+        Loo = fock[:nocc, :nocc] - torch.diag(eris.mo_energy[:nocc]) \
+            + einsum("kc,ic->ki", fov, t1)
+        Lvv = fock[nocc:, nocc:] \
+            - torch.diag(eris.mo_energy[nocc:] + level_shift) \
+            - einsum("kc,ka->ac", fov, t1)
+    else:
+        Loo = Foo_nd + einsum("kc,ic->ki", fov, t1) \
+            + 2.0 * einsum("lcki,lc->ki", ovoo, t1) \
+            - einsum("kcli,lc->ki", ovoo, t1)
+        Lvv = Fvv_nd - einsum("kc,ka->ac", fov, t1) + lvv_t1
+    return Loo, Lvv
+
+
+def _woooo(t1, t2, eris, variant="ccsd"):
+    ovoo, ovov = eris.ovoo, eris.ovov
+    Woooo = eris.oooo.permute(0, 2, 1, 3) \
+        + einsum("lcki,jc->klij", ovoo, t1) \
+        + einsum("kclj,ic->klij", ovoo, t1) \
+        + einsum("kcld,ic,jd->klij", ovov, t1, t1)
+    if variant != "cc2":
+        Woooo = Woooo + einsum("kcld,ijcd->klij", ovov, t2)
+    return Woooo
+
+
+def _wvoov(t1, t2, eris, vops):
+    ovoo, ovov = eris.ovoo, eris.ovov
+    return eris.get_ovvo().permute(2, 0, 3, 1) \
+        + vops.wvoov_t1(t1) \
+        - einsum("kcli,la->akic", ovoo, t1) \
+        - 0.5 * einsum("ldkc,ilda->akic", ovov, t2) \
+        - 0.5 * einsum("lckd,ilad->akic", ovov, t2) \
+        - einsum("ldkc,id,la->akic", ovov, t1, t1) \
+        + einsum("ldkc,ilad->akic", ovov, t2)
+
+
+def _wvovo(t1, t2, eris, vops):
+    ovoo, ovov = eris.ovoo, eris.ovov
+    return eris.oovv.permute(2, 0, 3, 1) \
+        + vops.wvovo_t1(t1) \
+        - einsum("lcki,la->akci", ovoo, t1) \
+        - 0.5 * einsum("lckd,ilda->akci", ovov, t2) \
+        - einsum("lckd,id,la->akci", ovov, t1, t1)
+
+
 def update_amps(t1, t2, eris: RERIs, level_shift=0.0, ntile=1,
                 variant="ccsd"):
     """One Jacobi sweep of the RCCSD / CC2 / CCD equations.
@@ -195,10 +303,7 @@ def update_amps(t1, t2, eris: RERIs, level_shift=0.0, ntile=1,
     if variant not in ("ccsd", "cc2", "ccd"):
         raise ValueError(f"unknown variant {variant!r}")
     nocc = eris.nocc
-    fock = eris.fock
-    fov = fock[:nocc, nocc:]
-    foo = fock[:nocc, :nocc]
-    fvv = fock[nocc:, nocc:]
+    fov = eris.fock[:nocc, nocc:]
     mo_e_o = eris.mo_energy[:nocc]
     mo_e_v = eris.mo_energy[nocc:] + level_shift
 
@@ -206,23 +311,10 @@ def update_amps(t1, t2, eris: RERIs, level_shift=0.0, ntile=1,
     ovoo = eris.ovoo
     ovvo = eris.get_ovvo()
     oovv = eris.oovv
-    oooo = eris.oooo
     vops = _OvvvOps(eris, ntile)
 
     # --- kappa intermediates (Eqs. 37-39), Fock diagonal removed ---------
-    Foo = foo + 2.0 * einsum("kcld,ilcd->ki", ovov, t2) \
-        - einsum("kdlc,ilcd->ki", ovov, t2) \
-        + 2.0 * einsum("kcld,ic,ld->ki", ovov, t1, t1) \
-        - einsum("kdlc,ic,ld->ki", ovov, t1, t1)
-    Fvv = fvv - 2.0 * einsum("kcld,klad->ac", ovov, t2) \
-        + einsum("kdlc,klad->ac", ovov, t2) \
-        - 2.0 * einsum("kcld,ka,ld->ac", ovov, t1, t1) \
-        + einsum("kdlc,ka,ld->ac", ovov, t1, t1)
-    Fov = fov + 2.0 * einsum("kcld,ld->kc", ovov, t1) \
-        - einsum("kdlc,ld->kc", ovov, t1)
-
-    Foo_nd = Foo - torch.diag(mo_e_o)
-    Fvv_nd = Fvv - torch.diag(mo_e_v)
+    Foo_nd, Fvv_nd, Fov = _kappa(t1, t2, eris, level_shift)
 
     # --- T1 (Eq. 35) ------------------------------------------------------
     t1new = fov.clone()
@@ -243,23 +335,11 @@ def update_amps(t1, t2, eris: RERIs, level_shift=0.0, ntile=1,
     t1new += einsum("kcli,lc,ka->ia", ovoo, t1, t1)
 
     # --- lambda intermediates (Eqs. 40-41) --------------------------------
-    if variant == "cc2":
-        # CC2: doubles see only the Fock operator (t1-dressed)
-        Loo = foo - torch.diag(mo_e_o) + einsum("kc,ic->ki", fov, t1)
-        Lvv = fvv - torch.diag(mo_e_v) - einsum("kc,ka->ac", fov, t1)
-    else:
-        Loo = Foo_nd + einsum("kc,ic->ki", fov, t1) \
-            + 2.0 * einsum("lcki,lc->ki", ovoo, t1) \
-            - einsum("kcli,lc->ki", ovoo, t1)
-        Lvv = Fvv_nd - einsum("kc,ka->ac", fov, t1) + lvv_t1
+    Loo, Lvv = _loo_lvv(t1, eris, Foo_nd, Fvv_nd, lvv_t1, variant,
+                        level_shift)
 
     # --- chi intermediates (Eqs. 42-45) -----------------------------------
-    Woooo = oooo.permute(0, 2, 1, 3) \
-        + einsum("lcki,jc->klij", ovoo, t1) \
-        + einsum("kclj,ic->klij", ovoo, t1) \
-        + einsum("kcld,ic,jd->klij", ovov, t1, t1)
-    if variant != "cc2":
-        Woooo = Woooo + einsum("kcld,ijcd->klij", ovov, t2)
+    Woooo = _woooo(t1, t2, eris, variant)
 
     # --- T2 (Eq. 36) ------------------------------------------------------
     # All P(ij|ab)-symmetrized pieces accumulate in place into ONE
@@ -274,29 +354,16 @@ def update_amps(t1, t2, eris: RERIs, level_shift=0.0, ntile=1,
     K.add_(einsum("ac,ijcb->ijab", Lvv, t2))
     K.sub_(einsum("ki,kjab->ijab", Loo, t2))
     if variant != "cc2":
-        Wvoov = ovvo.permute(2, 0, 3, 1) \
-            + vops.wvoov_t1(t1) \
-            - einsum("kcli,la->akic", ovoo, t1) \
-            - 0.5 * einsum("ldkc,ilda->akic", ovov, t2) \
-            - 0.5 * einsum("lckd,ilad->akic", ovov, t2) \
-            - einsum("ldkc,id,la->akic", ovov, t1, t1) \
-            + einsum("ldkc,ilad->akic", ovov, t2)
+        Wvoov = _wvoov(t1, t2, eris, vops)
         K.add_(einsum("akic,kjcb->ijab", Wvoov, t2), alpha=2.0)
         K.sub_(einsum("akic,kjbc->ijab", Wvoov, t2))
         del Wvoov
-        Wvovo = oovv.permute(2, 0, 3, 1) \
-            + vops.wvovo_t1(t1) \
-            - einsum("lcki,la->akci", ovoo, t1) \
-            - 0.5 * einsum("lckd,ilda->akci", ovov, t2) \
-            - einsum("lckd,id,la->akci", ovov, t1, t1)
+        Wvovo = _wvovo(t1, t2, eris, vops)
         K.sub_(einsum("akci,kjcb->ijab", Wvovo, t2))
         K.sub_(einsum("bkci,kjac->ijab", Wvovo, t2))
         del Wvovo
 
-    if variant == "cc2":
-        tau = einsum("ia,jb->ijab", t1, t1)
-    else:
-        tau = t2 + einsum("ia,jb->ijab", t1, t1)
+    tau = _tau(t1, t2, variant)
     t2new = K + K.permute(1, 0, 3, 2)
     del K
     t2new += ovov.permute(0, 2, 1, 3)
@@ -316,6 +383,119 @@ def update_amps(t1, t2, eris: RERIs, level_shift=0.0, ntile=1,
     return t1new, t2new
 
 
+def residual_segments(eris: RERIs, ntile=1, variant="ccsd"):
+    """The amplitude residual R(t) = update_raw(t) - t*D as independent
+    pieces, for the segmented Lambda vjp (cc/lambda_ad._lambda_step).
+
+    Returns a list of (fn, kind); fn(t1, t2) computes one additive piece
+    and kind names the cotangent it takes:
+      'r1'  contributes to R1 directly          (cotangent l1)
+      'k'   contributes to R2 as  K + K^(jiba)  (cotangent l2 + l2^(jiba))
+      'r2'  contributes to R2 directly          (cotangent l2)
+    The diagonal -t*D piece is analytic and not included.  The list,
+    its order, kinds and names are those of the JAX package's default
+    (rings split, ladder included), so each piece can be held to its
+    twin.
+
+    Differentiating the whole update at once keeps every ring
+    intermediate's cotangent live together; one piece at a time, the
+    backward's peak is the largest piece's.  R1 is split along its
+    intermediate families so each piece holds at most two t2-sized
+    partials."""
+    nocc = eris.nocc
+    fov = eris.fock[:nocc, nocc:]
+    ovov, ovoo, oovv = eris.ovov, eris.ovoo, eris.oovv
+    ovvo = eris.get_ovvo()
+    vops = _OvvvOps(eris, ntile)
+
+    def seg_t1_fvv(t1, t2):
+        _, Fvv_nd, _ = _kappa(t1, t2, eris)
+        r = fov.to(t1.dtype) + torch.zeros_like(t1)
+        r = r - 2.0 * einsum("kc,ka,ic->ia", fov, t1, t1)
+        return r + einsum("ac,ic->ia", Fvv_nd, t1)
+
+    def seg_t1_foo(t1, t2):
+        Foo_nd, _, _ = _kappa(t1, t2, eris)
+        return -einsum("ki,ka->ia", Foo_nd, t1)
+
+    def seg_t1_fov(t1, t2):
+        _, _, Fov = _kappa(t1, t2, eris)
+        r = 2.0 * einsum("kc,kica->ia", Fov, t2)
+        r = r - einsum("kc,ikca->ia", Fov, t2)
+        return r + einsum("kc,ic,ka->ia", Fov, t1, t1)
+
+    def seg_t1_rest(t1, t2):
+        r = 2.0 * einsum("kcai,kc->ia", ovvo, t1)
+        r = r - einsum("kiac,kc->ia", oovv, t1)
+        r = r + vops.t1_t2_terms(t2)
+        r = r + einsum("ac,ic->ia", vops.lvv_t1(t1), t1)
+        r = r - 2.0 * einsum("lcki,klac->ia", ovoo, t2)
+        r = r + einsum("kcli,klac->ia", ovoo, t2)
+        r = r - 2.0 * einsum("lcki,lc,ka->ia", ovoo, t1, t1)
+        return r + einsum("kcli,lc,ka->ia", ovoo, t1, t1)
+
+    def seg_k_light(t1, t2):
+        Foo_nd, Fvv_nd, _ = _kappa(t1, t2, eris)
+        Loo, Lvv = _loo_lvv(t1, eris, Foo_nd, Fvv_nd, vops.lvv_t1(t1),
+                            variant)
+        tmp2 = ovoo.permute(1, 3, 0, 2) + einsum("kcai,jc->akij", ovvo, t1)
+        K = vops.t2_vvov_t1(t1)
+        K = K - einsum("kibc,ka,jc->ijab", oovv, t1, t1)
+        K = K - einsum("akij,kb->ijab", tmp2, t1)
+        del tmp2
+        K = K + einsum("ac,ijcb->ijab", Lvv, t2)
+        return K - einsum("ki,kjab->ijab", Loo, t2)
+
+    def seg_ring_voov(t1, t2):
+        W = _remat(lambda a, b: _wvoov(a, b, eris, vops), t1, t2)
+        K = 2.0 * einsum("akic,kjcb->ijab", W, t2)
+        return K - einsum("akic,kjbc->ijab", W, t2)
+
+    def seg_ring_vovo(t1, t2):
+        W = _remat(lambda a, b: _wvovo(a, b, eris, vops), t1, t2)
+        K = -einsum("akci,kjcb->ijab", W, t2)
+        return K - einsum("bkci,kjac->ijab", W, t2)
+
+    def seg_oooo(t1, t2):
+        return einsum("klij,klab->ijab", _woooo(t1, t2, eris, variant),
+                      _tau(t1, t2, variant))
+
+    def seg_ladder(t1, t2):
+        tau = _tau(t1, t2, variant)
+        if eris.vvvv is not None:
+            return _ladder_vvvv(tau, t1, eris)
+        return _ladder_df(tau, t1, eris, ntile)
+
+    segs = [(seg_t1_fvv, "r1"), (seg_t1_foo, "r1"), (seg_t1_fov, "r1"),
+            (seg_t1_rest, "r1"), (seg_k_light, "k")]
+    if variant == "ccd":
+        segs = [(seg_k_light, "k")]
+    if variant != "cc2":
+        segs += [(seg_ring_voov, "k"), (seg_ring_vovo, "k")]
+    return segs + [(seg_oooo, "r2"), (seg_ladder, "r2")]
+
+
+def residual_from_segments(t1, t2, eris: RERIs, ntile=1, variant="ccsd"):
+    """R(t) assembled from the segments plus the constant and diagonal
+    pieces (the validation path; the Lambda solver needs only the vjp)."""
+    nocc = eris.nocc
+    eia = eris.mo_energy[:nocc, None] - eris.mo_energy[None, nocc:]
+    d2 = eia[:, None, :, None] + eia[None, :, None, :]
+    r1 = -t1 * eia
+    r2 = eris.ovov.permute(0, 2, 1, 3) - t2 * d2
+    for fn, kind in residual_segments(eris, ntile, variant):
+        c = fn(t1, t2)
+        if kind == "r1":
+            r1 = r1 + c
+        elif kind == "k":
+            r2 = r2 + c + c.permute(1, 0, 3, 2)
+        else:
+            r2 = r2 + c
+    if variant == "ccd":
+        r1 = torch.zeros_like(r1)
+    return r1, r2
+
+
 def kernel(eris: RERIs, max_cycle=50, conv_tol=1e-8, conv_tol_normt=1e-6,
            diis_space=6, level_shift=0.0, verbose=0, t1=None, t2=None,
            ntile=1, diis_start_cycle=0, variant="ccsd",
@@ -323,19 +503,20 @@ def kernel(eris: RERIs, max_cycle=50, conv_tol=1e-8, conv_tol_normt=1e-6,
            diis_err_dtype=None):
     """Host-driven CCSD iteration with DIIS.
 
-    The DIIS ring is the host ``lib.diis.DIIS``: every cycle
-    copies the amplitudes to the host (0.74 GB at the (H2O)8 shape) and
-    back.  adiis: a preloaded DIIS object to resume from; diis_file: spill
-    the ring there every cycle.  Returns (converged, e_corr, t1, t2)."""
+    diis_backend='host': the ring is the host ``lib.diis.DIIS``; every
+    cycle copies the amplitudes to the host (0.74 GB at the (H2O)8 shape)
+    and back.  adiis: a preloaded host DIIS object to resume from;
+    diis_file: spill the ring there every cycle.  diis_backend='device':
+    the ring stays on the device (lib/device_diis.update_hostsolve; only
+    the Gram matrix crosses to the host), the error is the step
+    vec_new - vec_old, and diis_err_dtype=torch.bfloat16 halves the error
+    ring.  Returns (converged, e_corr, t1, t2)."""
     from pyscf_mpcc_tpu_torch.lib.diis import DIIS
     from pyscf_mpcc_tpu_torch.lib import logger as lg
-    if diis_backend != "host":
-        raise NotImplementedError(
-            "diis_backend='device' (lib/device_diis) is ROADMAP A4, "
-            "not ported yet")
-    if diis_err_dtype is not None:
-        raise NotImplementedError(
-            "diis_err_dtype applies to the device DIIS ring (ROADMAP A4)")
+    if diis_backend not in ("host", "device"):
+        raise ValueError(f"unknown diis_backend {diis_backend!r}")
+    if diis_err_dtype is not None and diis_backend != "device":
+        raise ValueError("diis_err_dtype applies to the device DIIS ring")
     log = lg.Logger(verbose=verbose)
     emp2, t1_0, t2_0 = init_amps(eris)
     if t1 is None:
@@ -344,22 +525,21 @@ def kernel(eris: RERIs, max_cycle=50, conv_tol=1e-8, conv_tol_normt=1e-6,
         t2 = t2_0
     del t1_0, t2_0
     log.info("RCCSD MP2 init E_corr = %.14f", float(emp2))
-    nocc, nvir = t1.shape
-    t2shape = t2.shape
+    shapes = (t1.shape, t2.shape)
     dev, dt = t2.device, t2.dtype
-
-    def from_host(vec):
-        return (torch.from_numpy(vec[: nocc * nvir].reshape(nocc, nvir))
-                .to(dev, dt),
-                torch.from_numpy(vec[nocc * nvir:].reshape(t2shape))
-                .to(dev, dt))
-
     e_last = float(energy(t1, t2, eris))
     converged = False
-    diis = adiis if adiis is not None else DIIS(space=diis_space)
-    if adiis is not None and adiis._xs:
-        # resume from the last extrapolated amplitudes in the ring
-        t1, t2 = from_host(adiis._xs[-1])
+    if diis_backend == "device":
+        from pyscf_mpcc_tpu_torch.lib import device_diis
+        dstate = device_diis.init(t1.numel() + t2.numel(), diis_space, dt,
+                                  err_dtype=diis_err_dtype, device=dev)
+        vec_old = _pack(t1, t2)
+    else:
+        diis = adiis if adiis is not None else DIIS(space=diis_space)
+        if adiis is not None and adiis._xs:
+            # resume from the last extrapolated amplitudes in the ring
+            t1, t2 = _unpack(torch.from_numpy(adiis._xs[-1]).to(dev, dt),
+                             *shapes)
     for it in range(max_cycle):
         t1new, t2new = update_amps(t1, t2, eris, level_shift, ntile=ntile,
                                    variant=variant)
@@ -367,13 +547,22 @@ def kernel(eris: RERIs, max_cycle=50, conv_tol=1e-8, conv_tol_normt=1e-6,
                       + torch.linalg.norm(t2new - t2))
         if it < diis_start_cycle:
             t1, t2 = t1new, t2new
+        elif diis_backend == "device":
+            del t1, t2
+            vec_new = _pack(t1new, t2new)
+            del t1new, t2new    # 0.74 GB each at production scale
+            dstate, vec = device_diis.update_hostsolve(dstate, vec_new,
+                                                       vec_new - vec_old)
+            del vec_new
+            vec_old = vec
+            t1, t2 = _unpack(vec, *shapes)
         else:
             del t1, t2
             vec = np.concatenate([t1new.cpu().numpy().ravel(),
                                   t2new.cpu().numpy().ravel()])
             del t1new, t2new    # 0.74 GB each at production scale
             vec = diis.update(vec)
-            t1, t2 = from_host(vec)
+            t1, t2 = _unpack(torch.from_numpy(vec).to(dev, dt), *shapes)
             del vec
             if diis_file is not None:
                 diis.dump(diis_file)
@@ -385,6 +574,17 @@ def kernel(eris: RERIs, max_cycle=50, conv_tol=1e-8, conv_tol_normt=1e-6,
             break
         e_last = e
     return converged, e, t1, t2
+
+
+def _pack(a, b):
+    """One flat vector of (a, b), the DIIS vector layout."""
+    return torch.cat([a.reshape(-1), b.reshape(-1)])
+
+
+def _unpack(vec, shape1, shape2):
+    """(a, b) views of a flat DIIS vector made by _pack."""
+    n1 = int(np.prod(shape1))
+    return vec[:n1].view(shape1), vec[n1:].view(shape2)
 
 
 def flops_per_update(nocc, nvir, naux=None, ntile=None):

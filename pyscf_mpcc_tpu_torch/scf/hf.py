@@ -6,7 +6,8 @@ package's ``scf/__init__`` enables the JAX compilation cache on import, so
 it cannot be imported where jax is absent.  Host NumPy in fp64, as in the
 JAX package: SCF is set-up cost, not the device hot path.  The device DF
 J/K offload is ROADMAP A18; UHF/ROHF and the energy-DIIS schemes are not
-ported yet.
+ported yet.  ``RHF(mol).as_scanner()`` is the geometry scanner
+(SCFScanner).
 """
 
 from __future__ import annotations
@@ -229,9 +230,9 @@ class SCFBase(StreamObject):
     scf = kernel
 
     def as_scanner(self):
-        raise NotImplementedError(
-            "the SCF/CCSD geometry scanner is part of ROADMAP A7, not "
-            "ported yet")
+        """Geometry scanner: a callable evaluating E_tot at a new geometry,
+        warm-starting the SCF from the previous converged density."""
+        return SCFScanner(self)
 
 
 class RHF(SCFBase):
@@ -300,6 +301,53 @@ class RHF(SCFBase):
         self.log.info("RHF converged=%s  E(RHF) = %.14f", self.converged,
                       self.e_tot)
         return self.e_tot
+
+
+class SCFScanner:
+    """Callable PES scanner over SCF solutions.
+
+    ``scanner(mol)`` (a built Mole, or an atom spec reusing the template
+    molecule's basis/unit/charge/spin) runs a fresh SCF of the template's
+    class and settings, seeded with the previous geometry's converged
+    density when the AO dimension matches.  Each call makes a new
+    mean-field object, exposed as ``scanner.mf``."""
+
+    def __init__(self, mf):
+        from pyscf_mpcc_tpu_torch.gto.mole import Mole
+        self._mole_cls = Mole
+        self.mf = mf
+        self.e_tot = mf.e_tot
+        self.converged = mf.converged
+
+    def _build_mol(self, mol_or_atom):
+        if isinstance(mol_or_atom, self._mole_cls):
+            mol = mol_or_atom
+            if not mol._built:
+                mol.build()
+            return mol
+        t = self.mf.mol
+        mol = self._mole_cls(atom=mol_or_atom, basis=t.basis, unit=t.unit,
+                             charge=t.charge, spin=t.spin, cart=t.cart,
+                             verbose=t.verbose)
+        mol.build()
+        return mol
+
+    def __call__(self, mol_or_atom, dm0=None):
+        last = self.mf
+        mol = self._build_mol(mol_or_atom)
+        mf = type(last)(mol, verbose=last.verbose)
+        for k in ("conv_tol", "conv_tol_grad", "max_cycle", "diis_space"):
+            setattr(mf, k, getattr(last, k))
+        if last.with_df is not None:
+            mf.density_fit(last.with_df.auxbasis)
+        if dm0 is None and last.converged and last.mo_coeff is not None \
+                and mol.nao == last.mol.nao:
+            dm0 = last.make_rdm1()
+        mf.kernel(dm0=dm0)
+        self.mf = mf
+        self.e_tot = mf.e_tot
+        self.converged = mf.converged
+        return mf.e_tot
 
 
 def UHF(mol, *args, **kwargs):

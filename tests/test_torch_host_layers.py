@@ -1,11 +1,12 @@
 """The port's copies of the JAX package's host layers (gto, df, lib.diis,
-lib.logger, lib.stream, config) against the originals.
+lib.chkfile, lib.logger, lib.stream, config) against the originals.
 
 The port imports nothing of pyscf_mpcc_tpu, so it carries these NumPy/C++
 layers itself; they must stay the same functions.  On H2O/cc-pVDZ the
 integrals, the DF factor and a DIIS extrapolation agree to 1e-12 (the same
 code on the same inputs; only the native engine's thread order may move
-the last bits), and the vendored basis library is byte-identical.
+the last bits), a chk file written by either chkfile loads bit for bit in
+the other, and the vendored basis library is byte-identical.
 """
 
 import filecmp
@@ -17,10 +18,11 @@ import pytest
 from pyscf_mpcc_tpu import config as jconfig
 from pyscf_mpcc_tpu import df as jdf
 from pyscf_mpcc_tpu import gto as jgto
+from pyscf_mpcc_tpu.lib import chkfile as jchkfile
 from pyscf_mpcc_tpu.lib import diis as jdiis
 from pyscf_mpcc_tpu_torch import config, df, gto
 from pyscf_mpcc_tpu_torch.gto import native
-from pyscf_mpcc_tpu_torch.lib import diis, logger, stream
+from pyscf_mpcc_tpu_torch.lib import chkfile, diis, logger, stream
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOM = [[8, (0., 0., 0.)], [1, (0., -0.757, 0.587)],
@@ -71,6 +73,38 @@ def test_diis_extrapolation_matches():
         a = d.update(x, xerr=err)
         b = jd.update(x, xerr=err)
         np.testing.assert_allclose(a, b, rtol=0, atol=TOL)
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    else:
+        np.testing.assert_array_equal(a, b)
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_chkfile_copy_matches(tmp_path, writer):
+    rng = np.random.default_rng(5)
+    payload = {"e": np.float64(-0.25), "t2": rng.standard_normal((2, 2, 3, 3)),
+               "nested": {"occ": np.arange(4), "seq": [np.ones(2), 3.5]}}
+    path = str(tmp_path / f"{writer}.chk")
+    save, load = ((chkfile.save, jchkfile.load) if writer == "port"
+                  else (jchkfile.save, chkfile.load))
+    save(path, "scf", payload)
+    save(path, "scf", payload)          # overwriting a key
+    out = load(path, "scf")
+    _same(out, payload | {"nested": {"occ": np.arange(4),
+                                     "seq": [np.ones(2), np.float64(3.5)]}})
+    t1, t2 = rng.standard_normal((2, 3)), rng.standard_normal((2, 2, 3, 3))
+    chkfile.dump_cc(path, -0.2, t1, t2, mo_coeff=np.eye(5))
+    _same(jchkfile.load_cc(path), chkfile.load_cc(path))
 
 
 def test_basis_library_is_identical():

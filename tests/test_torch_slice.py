@@ -5,7 +5,8 @@
   on H2O/cc-pVDZ: E_corr to 1e-9 and E(T) to 1e-10.
 - No module of the port (nor chip_smoke.py) imports jax or anything of
   the JAX package; a fresh interpreter runs a small synthetic CCSD(T)
-  through the fused and resident engines with neither ever loaded.
+  through the fused and resident engines, and Lambda and the Lagrangian
+  energy with the device DIIS ring, with neither ever loaded.
 - Without a device argument the entry points run on CUDA, and raise
   where there is no card.
 """
@@ -36,6 +37,8 @@ PKG = os.path.join(ROOT, "pyscf_mpcc_tpu_torch")
 # modules of the JAX package the port may import: none (its host layers
 # are copies inside the port)
 ALLOWED = ()
+# the modules of the Lambda slice: both import checks must reach them
+LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile")
 
 
 def test_df_slice_matches_jax_driver(monkeypatch):
@@ -78,6 +81,9 @@ def _sources():
 
 
 def test_port_imports_no_jax_statically():
+    walked = set(_sources())
+    for m in LAMBDA_SLICE:
+        assert os.path.join(PKG, *m.split(".")) + ".py" in walked, m
     bad = []
     for path in _sources():
         for name in _imports(path):
@@ -90,7 +96,7 @@ def test_port_imports_no_jax_statically():
     assert not bad, bad
 
 
-CHILD = r"""
+CHILD = f"LAMBDA_SLICE = {LAMBDA_SLICE!r}\n" + r"""
 import sys
 if "jax" in sys.modules:
     print("JAX_PRELOADED")
@@ -99,13 +105,20 @@ import importlib, pkgutil, torch
 import pyscf_mpcc_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+for m in LAMBDA_SLICE:
+    assert "pyscf_mpcc_tpu_torch." + m in sys.modules, m
 from pyscf_mpcc_tpu_torch import testing
-from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd
+from pyscf_mpcc_tpu_torch.cc import ccsd_t, lambda_ad, rccsd
 er = testing.synthetic_eris(4, 11, 30, device="cpu", build_ovvv=False)
-conv, e, t1, t2 = rccsd.kernel(er, ntile=2, conv_tol=1e-10)
+conv, e, t1, t2 = rccsd.kernel(er, ntile=2, conv_tol=1e-10,
+                               diis_backend="device")
 et = ccsd_t.kernel(t1, t2, er, tile=4, engine="fused")
 er_ = ccsd_t.kernel(t1, t2, er, tile=4, engine="resident")
 assert conv and e < 0 and et < 0 and abs(er_ - et) < 1e-10, (conv, e, et)
+cl, l1, l2 = lambda_ad.kernel(t1, t2, er, ntile=2, conv_tol=1e-8,
+                              diis_backend="device")
+el = float(lambda_ad.lagrangian_energy(t1, t2, l1, l2, er, ntile=2))
+assert cl and abs(el - e) < 1e-9, (cl, el, e)
 mol = pkg.M(atom="O 0 0 0; H 0 0.757 0.587; H 0 -0.757 0.587",
             basis="cc-pvdz")
 from pyscf_mpcc_tpu_torch.scf import RHF
