@@ -56,13 +56,30 @@ each, started together), then runs:
      and the RDM identities; (b) the fp32 CCSD and Lambda, at the
      driver's tolerances and stopped early, upcast and certified by the
      fp64 Lagrangian energy, the raw, uncertified (the fp64 energy of the
-     fp32 amplitudes) and certified gaps to the fp64 energy; (c) the (H2O)8 shape: two Lambda cycles with the
-     device ring (s/cycle, peak memory, ring bytes), one fp32 Lambda step
+     fp32 amplitudes) and certified gaps to the fp64 energy; (c) the
+     (H2O)8 shape: two Lambda cycles with the device ring (s/cycle, peak
+     memory, ring bytes), one fp32 Lambda step
      against the same step in fp64, one fp64 Lagrangian energy, two
      CCSD cycles with the host ring and then the device ring (damped by
      a level shift so the iterates stay finite), and the host ring's
      work split into its copies, NumPy concatenation, update and Gram;
-     (d) the CCSD geometry scanner in fp64 against a cold run.
+     (d) the CCSD geometry scanner in fp64 against a cold run;
+  8. MP2 and MP-CC (no hand kernel on these paths either; mpcc_phase):
+     (a) H2O/cc-pVDZ pins in fp64 on the card (phase 2's incore
+     integrals): E_MP2, the masked solver's all-frozen (E_MP2) and
+     nothing-frozen (E_CCSD) limits in both bath modes, MPCCSD(4,2)
+     between them on both DIIS rings, the low-level energy on
+     exact-Cholesky factors; the same solves in fp32 within 1e-6 Ha, with
+     the frozen blocks bit for bit the bath's; (b) (H2O)4/cc-pVDZ (host
+     RHF): the fragmented workflow, one fragment per water chained, in
+     fp64 (each fragment's share of the MP2 -> CCSD gap) and fp32, the
+     one-fragment no-freeze control against CCSD(mf), DF-MP2 energies and
+     unrelaxed and relaxed densities (with and without a frozen core)
+     against the same calls on the CPU, and the MPCC(mf) facade in fp32
+     and fp64; (c) the (H2O)8 shape in fp32 on phase 1's synthetic
+     integrals: masked MP-CC cycles on the device ring and one on the
+     host ring (damped by a level shift), low-level cycles, DF-MP2 and
+     iterative MP2 cycles on each ring, with times and peak memory.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, its error against the
@@ -124,6 +141,16 @@ RTOL_SPLIT = 5e-4
 # same fp32 (or exact bf16) products over K = 424 in different orders;
 # the atol is this times the largest plain value (cancellation)
 RTOL_DOTS = 1e-5
+# MP2 and MP-CC pins, H2O/cc-pVDZ (the JAX package's tests/test_mpcc.py:14
+# and tests/test_lowlevel.py:10; E_LL on exact-Cholesky factors)
+E_MP2_SYM = -0.2040199672883385
+E_LL_SYM = -0.20549941032564464
+# MP-CC at the (H2O)8 shape: MPCCSD(4,2) on 8 of the 32 holes and 106 of
+# the 424 particles (a quarter of each)
+ACT_HOLES, ACT_PARTICLES = 8, 106
+# fp32 against fp64 MP2 / MP-CC energies (the issue's bound, as phase 3)
+# and the fp32 solves' tolerances, a few fp32 roundings of E_corr
+TOL_FP32 = dict(conv_tol=1e-7, conv_tol_normt=1e-5, max_cycle=100)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
@@ -192,12 +219,302 @@ def nbytes(*xs):
     return tot
 
 
+def seconds(torch, fn):
+    """(fn(), host seconds), the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def bound_ms(nbyte, flops):
     """Least milliseconds for nbyte of traffic and flops {type: count}:
     the larger of the byte time and the summed operation times."""
     t_b = nbyte / PEAK["bytes"]
     t_o = sum(n / PEAK[k] for k, n in flops.items())
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def mpcc_phase(torch, smi, cc, beris, bt1, bt2, sweep_sec, ntile):
+    """Phase 8: MP2 and MP-CC on the card.  cc: phase 2's fp64 H2O/cc-pVDZ
+    driver (incore integrals on the card); beris, bt1, bt2: phase 1's fp32
+    synthetic integrals and MP2 amplitudes at the (H2O)8 shape;
+    sweep_sec, ntile: phase 4's sweep time and ladder tiling."""
+    import numpy as np
+    from pyscf_mpcc_tpu_torch import gto, testing
+    from pyscf_mpcc_tpu_torch.cc import rccsd
+    from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+    from pyscf_mpcc_tpu_torch.cc.eris import RERIs, df_factors
+    from pyscf_mpcc_tpu_torch.mp import DFRMP2, mp2
+    from pyscf_mpcc_tpu_torch.mpcc import MPCC, lowlevel, rmpccsd, workflow
+    from pyscf_mpcc_tpu_torch.mpcc.masks import frozen_masks
+    from pyscf_mpcc_tpu_torch.scf import RHF
+
+    f64, f32 = torch.float64, torch.float32
+    dev, cpu = beris.ovov.device, torch.device("cpu")
+
+    def frozen(space, n_occ, n_vir):
+        """The space's frozen-block masks as bool tensors on the card."""
+        return [torch.as_tensor(m, device=dev) for m in frozen_masks(
+            space["act_hole"], space["act_particle"], n_occ, n_vir,
+            space["idx_s"], space["idx_d"])]
+
+    # (a) H2O/cc-pVDZ: the pins in fp64, the same solves in fp32
+    t0 = time.perf_counter()
+    nocc, mo = cc.nocc, cc.mo_coeff
+    eri = cc._eri_ao if cc._eri_ao is not None else gto.intor_eri(cc.mol)
+    nao = eri.shape[0]
+    w, v = np.linalg.eigh(eri.reshape(nao * nao, nao * nao))
+    keep = w > 1e-12
+    b_chol = (v[:, keep] * np.sqrt(w[keep])).T.reshape(-1, nao, nao)
+    fock_mo = mo.T @ cc._scf.get_fock(cc._scf.make_rdm1()) @ mo
+    spaces = {
+        "all_frozen": dict(act_hole=[0, 1], act_particle=[0, 1],
+                           idx_s=list(range(4)), idx_d=list(range(16))),
+        "no_freeze": dict(act_hole=[0, 1], act_particle=[0, 1], idx_s=[],
+                          idx_d=[]),
+        "mpccsd42": dict(act_hole=[2, 3, 4], act_particle=[0, 1, 2, 3],
+                         idx_s=[], idx_d=list(range(15)))}
+    tol = {f64: dict(conv_tol=1e-10, conv_tol_normt=1e-8, max_cycle=100),
+           f32: TOL_FP32}
+    got, bit_exact = {}, True
+    for dt in (f64, f32):
+        er = cc.eris if dt == f64 else RERIs(*(None if x is None else
+                                               x.float() for x in cc.eris))
+        r = {"mp2": float(mp2.kernel(er.mo_energy[:nocc],
+                                     er.mo_energy[nocc:], er.ovov)[0])}
+        for bath in ("freeze", "mp2"):
+            for name in ("all_frozen", "no_freeze"):
+                conv, r[f"{name}_{bath}"], *_ = rmpccsd.kernel(
+                    er, **spaces[name], bath_update=bath, **tol[dt])
+                if not conv:
+                    raise RuntimeError(f"{name} ({bath}, {dt}) unconverged")
+        _, t1_0, t2_0 = rccsd.init_amps(er)
+        m1, m2 = frozen(spaces["mpccsd42"], nocc, er.nvir)
+        for ring in ("host", "device"):
+            conv, r[f"mpccsd42_{ring}"], t1, t2 = rmpccsd.kernel(
+                er, **spaces["mpccsd42"], t1=t1_0, t2=t2_0,
+                diis_backend=ring, **tol[dt])
+            bit_exact &= bool(torch.equal(t1[m1], t1_0[m1])
+                              and torch.equal(t2[m2], t2_0[m2]))
+            if not conv:
+                raise RuntimeError(f"MPCCSD(4,2) ({ring}, {dt}) unconverged")
+        conv, r["lowlevel"], *_ = lowlevel.kernel(
+            *df_factors(b_chol, mo, nocc, dt, device=dev), fock_mo, nocc,
+            conv_tol=1e-9 if dt == f64 else 1e-6)
+        if not conv:
+            raise RuntimeError(f"low-level solver ({dt}) unconverged")
+        got[dt] = r
+    r64 = got[f64]
+    d32 = max(abs(got[f32][k] - r64[k]) for k in r64)
+    checks = {
+        "mp2": abs(r64["mp2"] - E_MP2_SYM) < 1e-9,
+        "all_frozen": abs(r64["all_frozen_freeze"] - E_MP2_SYM) < 1e-9,
+        "no_freeze": abs(r64["no_freeze_freeze"] - E_CCSD_SYM) < 1e-7,
+        "mp2_bath": (abs(r64["all_frozen_mp2"] - E_MP2_SYM) < 1e-8
+                     and abs(r64["no_freeze_mp2"] - E_CCSD_SYM) < 1e-7),
+        "mpccsd42": all(E_CCSD_SYM - 1e-9 < r64[f"mpccsd42_{ring}"]
+                        < E_MP2_SYM + 1e-9 for ring in ("host", "device")),
+        "lowlevel": abs(r64["lowlevel"] - E_LL_SYM) < 1e-8,
+        "fp32": d32 < ATOL_MAIN_FP32, "bit_exact": bit_exact}
+    if not all(checks.values()):
+        raise RuntimeError(f"MP-CC pins: {checks} {got}")
+    say(8, "h2o mp2/mpcc pins fp64 ok",
+        **{k: repr(v) for k, v in r64.items()})
+    say(8, "h2o fp32 vs fp64 ok", max_abs_diff=f"{d32:.3e}",
+        atol=ATOL_MAIN_FP32, frozen_blocks_bit_exact=bit_exact,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # (b) (H2O)4/cc-pVDZ: the fragmented workflow, DF-MP2, the facade
+    t0 = time.perf_counter()
+    mol = gto.M(atom=testing.W4_GEOM, basis="cc-pvdz")
+    mf = RHF(mol)
+    mf.conv_tol = 1e-10
+    mf.kernel()
+    eri = gto.intor_eri(mol)
+    ref = CCSD(mf, device=dev, dtype=f64).set(conv_tol=1e-10,
+                                               conv_tol_normt=1e-8).run()
+    e_mp2 = ref.emp2
+    if not (mf.converged and ref.converged):
+        raise RuntimeError("(H2O)4 RHF or CCSD unconverged")
+    say(8, "(H2O)4 reference", nocc=ref.nocc, nmo=ref.nmo,
+        e_rhf=repr(mf.e_tot), e_mp2=repr(e_mp2), e_ccsd=repr(ref.e_corr),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    nw = mol.natm // 3           # one fragment (and one O 1s core) a water
+    waters = [[3 * i, 3 * i + 1, 3 * i + 2] for i in range(nw)]
+    chain = dict(idx_s=[], idx_d=list(range(15)), eri_ao=eri)
+    e_chain = []
+    for k in range(1, nw + 1):
+        e, _, _, _, sp = workflow.fragmented_mpcc(
+            mol, mf, waters[:k], device=dev, dtype=f64, **chain)
+        e_chain.append(e)
+    gap = ref.e_corr - e_mp2
+    (e32, *_), s32 = seconds(torch, lambda: workflow.fragmented_mpcc(
+        mol, mf, waters, device=dev, dtype=f32, mp2_conv=1e-7,
+        cc_conv=1e-7, **chain))
+    (e_ctrl, *_), s_ctrl = seconds(torch, lambda: workflow.fragmented_mpcc(
+        mol, mf, [list(range(mol.natm))], [], [], eri_ao=eri,
+        pop_threshold=-1.0, cc_conv=1e-10, device=dev, dtype=f64))
+    if not (all(ref.e_corr - 1e-7 <= e <= e_mp2 + 1e-7 for e in e_chain)
+            and abs(e_ctrl - ref.e_corr) < 1e-7
+            and abs(e32 - e_chain[-1]) < ATOL_MAIN_FP32):
+        raise RuntimeError(f"(H2O)4 workflow: chain {e_chain}, fp32 {e32}, "
+                           f"control {e_ctrl} vs CCSD {ref.e_corr}")
+    say(8, "(H2O)4 fragmented mpcc ok", idx_d="0-14",
+        spaces=json.dumps([[len(h), len(p)] for h, p in sp]),
+        e_chain=json.dumps(e_chain),
+        share_of_gap=json.dumps([round((e - e_mp2) / gap, 4)
+                                 for e in e_chain]),
+        e_fp32=repr(e32), d_fp32=f"{e32 - e_chain[-1]:.3e}",
+        sec_fp32_chain=f"{s32:.1f}",
+        d_control_ccsd=f"{e_ctrl - ref.e_corr:.2e}",
+        sec_control=f"{s_ctrl:.1f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del ref
+
+    t0 = time.perf_counter()
+    mfd = RHF(mol).density_fit()
+    mfd.conv_tol = 1e-10
+    mfd.kernel()
+    for nfro in (0, nw):
+        out = []     # (E, unrelaxed, relaxed, s energy, s relaxed): card, CPU
+        for d in (dev, cpu):
+            m, s_e = seconds(torch, lambda: DFRMP2(mfd, frozen=nfro, device=d,
+                                            dtype=f64).run())
+            dm_u = m.make_rdm1()
+            # twice: the first call on the card also loads the solver
+            # and autograd libraries
+            s_r = [seconds(torch, lambda: m.make_rdm1(relaxed=True))
+                   for _ in range(2)]
+            out.append((m.e_corr, dm_u.cpu(), s_r[1][0].cpu(), s_e,
+                        [t for _, t in s_r]))
+        de = abs(out[0][0] - out[1][0])
+        ddm = max(float((out[0][i] - out[1][i]).abs().max()) for i in (1, 2))
+        d_tr = float(torch.trace(out[0][2])) - mol.nelectron
+        if not (de < 1e-8 and ddm < 1e-8 and abs(d_tr) < 1e-8):
+            raise RuntimeError(f"DF-MP2 frozen={nfro}: dE {de}, ddm {ddm}, "
+                               f"trace-N {d_tr}")
+        say(8, "(H2O)4 dfmp2 fp64 ok", frozen=nfro, e_corr=repr(out[0][0]),
+            d_cpu=f"{de:.2e}", max_abs_ddm_cpu=f"{ddm:.2e}",
+            relaxed_trace_err=f"{d_tr:.2e}", sec_energy=f"{out[0][3]:.3f}",
+            sec_relaxed_first=f"{out[0][4][0]:.3f}",
+            sec_relaxed=f"{out[0][4][1]:.3f}",
+            sec_relaxed_cpu=f"{out[1][4][1]:.3f}")
+    facade = {}
+    for dt in (f32, f64):
+        m = MPCC(mfd, device=dev, dtype=dt)
+        e = m.kernel(act_hole=list(range(m.nocc - 8, m.nocc)),
+                     act_particle=list(range(16)), idx_s=[],
+                     idx_d=list(range(15)), **tol[dt])
+        if not (m.converged and m.t2.dtype == dt):
+            raise RuntimeError(f"MPCC facade ({dt}) unconverged")
+        facade[dt] = (m.e_lowlevel, e)
+    d_ll = facade[f32][0] - facade[f64][0]
+    d_hl = facade[f32][1] - facade[f64][1]
+    if not (abs(d_ll) < ATOL_MAIN_FP32 and abs(d_hl) < ATOL_MAIN_FP32):
+        raise RuntimeError(f"MPCC facade fp32 vs fp64: {facade}")
+    say(8, "(H2O)4 MPCC(mf) ok", e_lowlevel=repr(facade[f64][0]),
+        e_mpccsd42=repr(facade[f64][1]), d_lowlevel_fp32=f"{d_ll:.2e}",
+        d_mpccsd42_fp32=f"{d_hl:.2e}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del mfd, m
+
+    # (c) the (H2O)8 shape in fp32.  The synthetic integrals are not a
+    # molecule's; the cycles are timed, not converged (conv_tol 0), and
+    # damped by a level shift where their iterates would overflow
+    no, nv = bt1.shape
+    shift = 1e9
+    space = dict(act_hole=list(range(no - ACT_HOLES, no)),
+                 act_particle=list(range(ACT_PARTICLES)), idx_s=[],
+                 idx_d=list(range(15)))
+    t0 = time.perf_counter()
+    m1, m2 = frozen(space, no, nv)
+    t_masks = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    rows = {}
+    # a cycle's time is the difference of two calls, which share the
+    # per-call set-up (the host mask build, init_amps, the ring)
+    for ring, ncyc in (("device", (1, 3)), ("host", (1, 2))):
+        secs = []
+        for n in ncyc:
+            torch.cuda.reset_peak_memory_stats()
+            (_, e, c1, c2), sec_k = seconds(torch, lambda: rmpccsd.kernel(
+                beris, **space, t1=bt1, t2=bt2, max_cycle=n, conv_tol=0.0,
+                ntile=ntile, level_shift=shift, diis_backend=ring))
+            peak = torch.cuda.max_memory_allocated()
+            exact = not bool(((c2 != bt2) & m2).any()
+                             or ((c1 != bt1) & m1).any())
+            if not (torch.isfinite(c1).all() and torch.isfinite(c2).all()
+                    and abs(e) < float("inf") and exact):
+                raise RuntimeError(f"masked cycles ({ring}, {n}): E {e}, "
+                                   f"frozen blocks exact {exact}")
+            del c1, c2
+            secs.append(sec_k)
+        per = (secs[1] - secs[0]) / (ncyc[1] - ncyc[0])
+        rows[ring] = {f"sec_call_{n}": f"{t:.3f}" for n, t in zip(ncyc, secs)}
+        rows[ring].update(sec_per_cycle=f"{per:.3f}",
+                          sec_setup=f"{secs[0] - per:.3f}",
+                          peak_gib=f"{peak / 2**30:.2f}")
+    say(8, "(H2O)8 masked mpccsd fp32", shape=f"{no},{nv}",
+        active=f"{ACT_HOLES}x{ACT_PARTICLES}", level_shift=shift,
+        device_ring=json.dumps(rows["device"]),
+        host_ring=json.dumps(rows["host"]), sec_masks_host=f"{t_masks:.3f}",
+        sweep_sec_phase4=f"{sweep_sec:.4f}", base_gib=f"{base / 2**30:.2f}",
+        frozen_blocks_bit_exact=True, card=json.dumps(smi),
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    del m1, m2
+
+    fock = beris.fock.double().cpu().numpy().copy()
+    fock[range(no, no + nv), range(no, no + nv)] += shift
+    torch.cuda.reset_peak_memory_stats()
+    (_, e_ll, l1, l2), sec_ll = seconds(torch, lambda: lowlevel.kernel(
+        beris.Loo, beris.Lov, beris.Lvv, fock, no, max_cycle=3,
+        conv_tol=0.0))
+    peak_ll = torch.cuda.max_memory_allocated()
+    if not (torch.isfinite(l1).all() and torch.isfinite(l2).all()
+            and abs(e_ll) < float("inf")):
+        raise RuntimeError(f"non-finite low-level cycles: E {e_ll}")
+    del l1, l2
+    eo, ev = beris.mo_energy[:no], beris.mo_energy[no:]
+    mp2.df_kernel(eo, ev, beris.Lov)
+    torch.cuda.reset_peak_memory_stats()
+    (e_df, t2_df), sec_df = seconds(
+        torch, lambda: mp2.df_kernel(eo, ev, beris.Lov))
+    peak_df = torch.cuda.max_memory_allocated()
+    if not (torch.isfinite(t2_df).all() and torch.isfinite(e_df)):
+        raise RuntimeError("non-finite DF-MP2 at the (H2O)8 shape")
+    del t2_df
+    it = {}
+    for ring in ("device", "host"):
+        torch.cuda.reset_peak_memory_stats()
+        (e_it, t2_it, _), sec_it = seconds(torch, lambda: mp2.iterative_kernel(
+            beris.ovov, beris.fock[:no, :no], beris.fock[no:, no:],
+            max_cycle=2, conv_tol=0.0, diis_backend=ring))
+        if not (torch.isfinite(t2_it).all() and abs(e_it) < float("inf")):
+            raise RuntimeError(f"non-finite iterative MP2 ({ring})")
+        del t2_it
+        peak_it = torch.cuda.max_memory_allocated()
+        it[ring] = dict(sec_per_cycle=f"{sec_it / 2:.3f}",
+                        peak_gib=f"{peak_it / 2**30:.2f}")
+    # where the time of a low-level cycle and of DF-MP2 goes
+    args = (torch.zeros_like(bt1), beris.Loo, beris.Lov, beris.Lvv,
+            torch.zeros_like(beris.fock[:no, :no]),
+            torch.zeros_like(beris.fock[no:, no:]),
+            (ev[None, :] - eo[:, None]) + shift)
+    say(8, "(H2O)8 lowlevel update trace", top=json.dumps(trace_top(
+        torch, lambda: lowlevel.update_amps(*args), 2)))
+    say(8, "(H2O)8 df_kernel trace", top=json.dumps(trace_top(
+        torch, lambda: mp2.df_kernel(eo, ev, beris.Lov), 3)))
+    del args
+    say(8, "(H2O)8 lowlevel, mp2 fp32", lowlevel_cycles=3,
+        lowlevel_sec_per_cycle=f"{sec_ll / 3:.4f}",
+        lowlevel_peak_gib=f"{peak_ll / 2**30:.2f}",
+        df_mp2_sec=f"{sec_df:.4f}", df_mp2_peak_gib=f"{peak_df / 2**30:.2f}",
+        e_df_mp2=repr(float(e_df)),
+        iterative_device_ring=json.dumps(it["device"]),
+        iterative_host_ring=json.dumps(it["host"]), card=json.dumps(smi),
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
 
 
 def main():
@@ -960,18 +1277,11 @@ def main():
         seconds=f"{time.perf_counter() - t0:.1f}")
 
     # (c) the (H2O)8 shape in fp32: two Lambda cycles with the device ring
-    def seconds(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     ntile_l = memory.plan_ladder_ntile(NOCC, NVIR, NAUX, f32, vjp=True,
                                        device=dev)
     n_ring = NOCC * NVIR + bt2.numel()
     torch.cuda.reset_peak_memory_stats()
-    (_, lb1, lb2), sec_l = seconds(lambda: lambda_ad.kernel(
+    (_, lb1, lb2), sec_l = seconds(torch, lambda: lambda_ad.kernel(
         bt1, bt2, beris, max_cycle=2, ntile=ntile_l, diis_backend="device"))
     peak_l = torch.cuda.max_memory_allocated()
     if not (torch.isfinite(lb1).all() and torch.isfinite(lb2).all()):
@@ -986,7 +1296,7 @@ def main():
     # the solver's first step (l = t, the MP2 amplitudes: the synthetic
     # integrals are not a molecule's, and their iterates grow without
     # bound) in fp32 against the same step in fp64
-    s32, sec_s32 = seconds(lambda: lambda_ad._lambda_step(
+    s32, sec_s32 = seconds(torch, lambda: lambda_ad._lambda_step(
         bt1, bt2, bt1, bt2, beris, ntile=ntile_l))
     r2_32 = s32[3]
     del s32
@@ -995,7 +1305,7 @@ def main():
     ntile_l64 = memory.plan_ladder_ntile(NOCC, NVIR, NAUX, f64, vjp=True,
                                          device=dev)
     torch.cuda.reset_peak_memory_stats()
-    s64, sec_s64 = seconds(lambda: lambda_ad._lambda_step(
+    s64, sec_s64 = seconds(torch, lambda: lambda_ad._lambda_step(
         *t64, *t64, e64, ntile=ntile_l64))
     peak_s64 = torch.cuda.max_memory_allocated()
     rel = float(torch.linalg.norm(r2_32.double() - s64[3])
@@ -1012,7 +1322,7 @@ def main():
     # this shape
     torch.cuda.reset_peak_memory_stats()
     ntile64 = memory.plan_ladder_ntile(NOCC, NVIR, NAUX, f64, device=dev)
-    e_lag, sec_lag = seconds(lambda: float(lambda_ad.lagrangian_energy(
+    e_lag, sec_lag = seconds(torch, lambda: float(lambda_ad.lagrangian_energy(
         *t64, *t64, e64, ntile=ntile64)))
     if not (e_lag == e_lag and abs(e_lag) < float("inf")):
         raise RuntimeError(f"non-finite Lagrangian energy {e_lag}")
@@ -1031,7 +1341,7 @@ def main():
     from pyscf_mpcc_tpu_torch.lib.diis import DIIS
     diis_sec, e2c, growth, shift, hdiis = {}, {}, {}, 1e9, DIIS(space=6)
     for backend in ("host", "device"):
-        (_, e, c1, c2), s2c = seconds(lambda: rccsd.kernel(
+        (_, e, c1, c2), s2c = seconds(torch, lambda: rccsd.kernel(
             beris, max_cycle=2, ntile=ntile, t1=bt1, t2=bt2,
             level_shift=shift, diis_backend=backend,
             adiis=hdiis if backend == "host" else None))
@@ -1062,7 +1372,7 @@ def main():
         for j in range(i + 1):
             np.dot(hdiis._errs[i], hdiis._errs[j])
     t_gram = time.perf_counter() - t0
-    t_h2d = seconds(lambda: torch.from_numpy(vec).to(dev))[1]
+    t_h2d = seconds(torch, lambda: torch.from_numpy(vec).to(dev))[1]
     del vec, hdiis
     say(7, "(H2O)8 ccsd cycles host vs device ring", level_shift=shift,
         e_host=repr(e2c["host"]), e_device=repr(e2c["device"]),
@@ -1101,6 +1411,11 @@ def main():
     say(7, "ccsd scanner ok", e_warm=repr(e_warm),
         d_cold=f"{e_warm - e_cold:.2e}", atol=ATOL_SCAN,
         kernel_launches=tc.launch_count - n_tc + tr.launch_count - n_tr)
+
+    # ---- phase 8: MP2 and MP-CC -----------------------------------------
+    t0 = time.perf_counter()
+    mpcc_phase(torch, smi, cc, beris, bt1, bt2, sec, ntile)
+    say(8, "done", seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

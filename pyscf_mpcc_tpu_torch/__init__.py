@@ -13,6 +13,13 @@ easy to find:
                     (engine 'fused') or ``ops.triples_resident`` ('resident'),
 - ``cc.driver``     the ``CCSD(mf)`` facade (on the CUDA device unless
                     ``device=torch.device('cpu')`` is passed),
+- ``mp``            closed-shell MP2: canonical, SCS, DF, the
+                    non-canonical iterative solver, and DF-MP2 with
+                    relaxed densities (``DFRMP2``, ``SCSDFRMP2``),
+- ``mpcc``          the restricted MP-CC hybrid: block masks, the masked
+                    CCSD solver, the DF low-level solver, the fragmented
+                    workflow and the ``MPCC(mf)`` facade,
+- ``lo``            Pipek-Mezey localization (host NumPy copy),
 - ``ops``           hand-written CUDA kernels for Hopper (sm_90a) and
                     their plain PyTorch versions,
 - ``lib``           device/dtype policy, the memory planner, and the
@@ -20,7 +27,7 @@ easy to find:
 
 The framework-free host layers (``gto`` with its native integral engine
 and basis library, ``df``, ``lib.diis``, ``lib.logger``, ``lib.stream``,
-``config``) are copies of the JAX package's, with their imports pointed
+``config``, ``lo.pm``, ``mpcc.masks``) are copies of the JAX package's, with their imports pointed
 here: the port imports nothing of ``pyscf_mpcc_tpu`` and nothing of jax.
 """
 

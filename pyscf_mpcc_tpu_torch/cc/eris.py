@@ -95,6 +95,25 @@ def _pair(La, Lb):
     return out.reshape(La.shape[1:] + Lb.shape[1:])
 
 
+def df_factors(b_ao, mo_coeff, nocc, dtype=None, *, device):
+    """(Loo, Lov, Lvv): the MO blocks of the 3-center factors, transformed
+    in fp64 on the device and stored in the working dtype.
+
+    b_ao: (naux, nao, nao) factors (host array or tensor)."""
+    device, dtype = _dev.resolve(device, dtype)
+    mo = _fp64(mo_coeff, device)
+    co, cv = mo[:, :nocc], mo[:, nocc:]
+    B = _fp64(b_ao, device)
+    Lo = torch.einsum("Lpq,pi->Liq", B, co)
+    Loo = torch.einsum("Liq,qj->Lij", Lo, co).to(dtype)
+    Lov = torch.einsum("Liq,qa->Lia", Lo, cv).to(dtype)
+    del Lo
+    Lv = torch.einsum("Lpq,pa->Laq", B, cv)
+    del B
+    Lvv = torch.einsum("Laq,qb->Lab", Lv, cv).to(dtype)
+    return Loo, Lov, Lvv
+
+
 def make_eris_df(b_ao, mo_coeff, fock_ao, nocc, dtype=None, keep_ovvv=True,
                  stream_vv=False, transform_backend=None, *, device):
     """DF container: all blocks from B factors; vvvv left implicit.
@@ -110,17 +129,8 @@ def make_eris_df(b_ao, mo_coeff, fock_ao, nocc, dtype=None, keep_ovvv=True,
         raise NotImplementedError(
             "stream_vv (host-resident Lvv) is ROADMAP A16, not ported yet")
     device, dtype = _dev.resolve(device, dtype)
+    Loo, Lov, Lvv = df_factors(b_ao, mo_coeff, nocc, dtype, device=device)
     mo = _fp64(mo_coeff, device)
-    co, cv = mo[:, :nocc], mo[:, nocc:]
-    B = _fp64(b_ao, device)
-    Lo = torch.einsum("Lpq,pi->Liq", B, co)
-    Loo = torch.einsum("Liq,qj->Lij", Lo, co).to(dtype)
-    Lov = torch.einsum("Liq,qa->Lia", Lo, cv).to(dtype)
-    del Lo
-    Lv = torch.einsum("Lpq,pa->Laq", B, cv)
-    del B
-    Lvv = torch.einsum("Laq,qb->Lab", Lv, cv).to(dtype)
-    del Lv
     fock = (mo.T @ _fp64(fock_ao, device) @ mo).to(dtype)
     return RERIs(
         fock=fock,

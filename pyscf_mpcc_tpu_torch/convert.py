@@ -39,9 +39,19 @@ def eris_from_numpy(fields, device, dtype=None):
 
 
 def amps_from_numpy(t1, t2, device, dtype=None):
-    """(t1, t2) tensors from numpy amplitudes."""
+    """(t1, t2) tensors from numpy amplitudes (an MP-CC bath too)."""
+    return tensors_from_numpy(t1, t2, device=device, dtype=dtype)
+
+
+def tensors_from_numpy(*arrays, device, dtype=None):
+    """A tuple of tensors on ``device``: boolean arrays (the MP-CC block
+    masks) as torch.bool, the rest in the working dtype (DF factors and
+    fock_mo, amplitudes, the DF-MP2 inputs B_ao, C0 and h_ao)."""
     device, dtype = _dev.resolve(device, dtype)
-    return _tensor(t1, device, dtype), _tensor(t2, device, dtype)
+    return tuple(
+        torch.tensor(np.asarray(x), device=device, dtype=torch.bool)
+        if np.asarray(x).dtype == np.bool_ else _tensor(x, device, dtype)
+        for x in arrays)
 
 
 def to_numpy(x):

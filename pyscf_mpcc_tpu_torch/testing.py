@@ -32,6 +32,20 @@ GEOMS = {
              [1, (0.2, 0.757, 0.487)]],
 }
 
+# (H2O)4: the first four waters (12 atoms, O H H each, Angstrom) of the
+# (H2O)8 cube of examples/w8_ccsd_pipeline.py (_w8_cube: O-O edge 2.8,
+# r(OH) 0.9572).  nocc 20, nmo 96 in cc-pVDZ.
+W4_GEOM = [
+    ["O", (0.0, 0.0, 0.0)], ["H", (0.9572, 0.0, 0.0)],
+    ["H", (0.0, 0.9572, 0.0)],
+    ["O", (0.0, 0.0, 2.8)], ["H", (0.0, 0.0, 1.8427999999999998)],
+    ["H", (0.9572, 0.0, 2.8)],
+    ["O", (0.0, 2.8, 0.0)], ["H", (0.9572, 2.8, 0.0)],
+    ["H", (0.0, 2.8, 0.9572)],
+    ["O", (0.0, 2.8, 2.8)], ["H", (0.0, 1.8427999999999998, 2.8)],
+    ["H", (0.9572, 2.8, 2.8)],
+]
+
 
 def mol_of(geom="sym", basis="cc-pvdz"):
     """The port's Mole of an H2O geometry of GEOMS."""

@@ -1,12 +1,15 @@
 """The port's copies of the JAX package's host layers (gto, df, lib.diis,
-lib.chkfile, lib.logger, lib.stream, config) against the originals.
+lib.chkfile, lib.logger, lib.stream, config, lo.pm, mpcc.masks) against
+the originals.
 
 The port imports nothing of pyscf_mpcc_tpu, so it carries these NumPy/C++
 layers itself; they must stay the same functions.  On H2O/cc-pVDZ the
-integrals, the DF factor and a DIIS extrapolation agree to 1e-12 (the same
-code on the same inputs; only the native engine's thread order may move
-the last bits), a chk file written by either chkfile loads bit for bit in
-the other, and the vendored basis library is byte-identical.
+integrals, the DF factor, a DIIS extrapolation, the Lowdin populations and
+a Pipek-Mezey localization agree to 1e-12 (the same code on the same
+inputs; only the native engine's thread order may move the last bits), a
+chk file written by either chkfile loads bit for bit in the other, the
+MP-CC block masks are identical arrays, and the vendored basis library is
+byte-identical.
 """
 
 import filecmp
@@ -20,9 +23,13 @@ from pyscf_mpcc_tpu import df as jdf
 from pyscf_mpcc_tpu import gto as jgto
 from pyscf_mpcc_tpu.lib import chkfile as jchkfile
 from pyscf_mpcc_tpu.lib import diis as jdiis
+from pyscf_mpcc_tpu.lo import pm as jpm
+from pyscf_mpcc_tpu.mpcc import masks as jmasks
 from pyscf_mpcc_tpu_torch import config, df, gto
 from pyscf_mpcc_tpu_torch.gto import native
 from pyscf_mpcc_tpu_torch.lib import chkfile, diis, logger, stream
+from pyscf_mpcc_tpu_torch.lo import pm
+from pyscf_mpcc_tpu_torch.mpcc import masks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOM = [[8, (0., 0., 0.)], [1, (0., -0.757, 0.587)],
@@ -142,3 +149,47 @@ def test_config_and_stream_layers():
     assert obj.tol == 1e-5 and obj.run() is obj
     log = logger.Logger(verbose=logger.INFO)
     assert log.timer("")
+
+
+def test_pm_localization_matches(mols):
+    mol, jmol = mols
+    S = gto.intor_ovlp(mol)
+    w, v = np.linalg.eigh(S)
+    C = v[:, -5:] / np.sqrt(w[-5:])       # five S-orthonormal orbitals
+    q = pm.lowdin_populations(mol, C, S=S)
+    np.testing.assert_allclose(q, jpm.lowdin_populations(jmol, C, S=S),
+                               rtol=0, atol=TOL)
+    # S computed inside, from each package's own gto
+    np.testing.assert_allclose(pm.lowdin_populations(mol, C), q, rtol=0,
+                               atol=TOL)
+    c_loc, u = pm.pm_localize(mol, C, S=S, max_sweeps=50)
+    jc_loc, ju = jpm.pm_localize(jmol, C, S=S, max_sweeps=50)
+    np.testing.assert_allclose(c_loc, jc_loc, rtol=0, atol=TOL)
+    np.testing.assert_allclose(u, ju, rtol=0, atol=TOL)
+    np.testing.assert_allclose(u.T @ u, np.eye(5), atol=1e-10)
+    np.testing.assert_allclose(pm.PipekMezey(mol, C).kernel(), c_loc,
+                               rtol=0, atol=TOL)
+
+
+# (act_hole, act_particle, nocc, nvir, idx_s, idx_d)
+MASK_SPACES = [([2, 4], [0, 3, 5], 5, 7, [0, 3], [1, 6, 15]),
+               ([0], [1], 3, 4, list(range(4)), list(range(16))),
+               ([2, 3, 4], [0, 1, 2, 3], 5, 19, [], list(range(15)))]
+
+
+@pytest.mark.parametrize("space", MASK_SPACES)
+def test_mpcc_masks_identical(space):
+    ah, ap, no, nv, idx_s, idx_d = space
+    pairs = [(masks.singles_blocks(ah, ap, no, nv),
+              jmasks.singles_blocks(ah, ap, no, nv)),
+             (masks.doubles_blocks(ah, ap, no, nv),
+              jmasks.doubles_blocks(ah, ap, no, nv)),
+             (masks.doubles_blocks(ah, ap, no, nv, [0], [1, 2], 2, 3),
+              jmasks.doubles_blocks(ah, ap, no, nv, [0], [1, 2], 2, 3)),
+             (masks.frozen_masks(ah, ap, no, nv, idx_s, idx_d),
+              jmasks.frozen_masks(ah, ap, no, nv, idx_s, idx_d))]
+    for got, want in pairs:
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.bool_
+            np.testing.assert_array_equal(g, w)
