@@ -79,7 +79,23 @@ each, started together), then runs:
      and fp64; (c) the (H2O)8 shape in fp32 on phase 1's synthetic
      integrals: masked MP-CC cycles on the device ring and one on the
      host ring (damped by a level shift), low-level cycles, DF-MP2 and
-     iterative MP2 cycles on each ring, with times and peak memory.
+     iterative MP2 cycles on each ring, with times and peak memory;
+  9. the open-shell path (no hand kernel on it either; open_shell_phase):
+     (a) O2 triplet/sto-3g through UHF and ROHF and H2O/sto-3g through
+     UHF in fp64 on the card: E(SCF), E(UCCSD) and E(T) against pins
+     made by the JAX package, the unrestricted Lambda on the host ring
+     against the device ring, the make_rdm12_u energy identity, and the
+     closed shell against the restricted path; (b) OH(H2O)3/cc-pVDZ
+     through UHF(mol).density_fit().run() -> CCSD(mf) -> run, the
+     unrestricted Lambda (device ring) and (T) in fp32, the fp32 energy
+     certified by the fp64 lagrangian_energy_u against the fp64 card
+     solve and the JAX package's certified campaign energy, and DF-UMP2
+     energy and relaxed density on the card against the CPU; (c) the
+     OH(H2O)3/cc-pVTZ shape (20, 19, 198, 199, 526) on synthetic UERIs in
+     fp32: sweep time and peak, fp32 against fp64, seinsum's host share
+     of a sweep (torch.profiler), CCSD cycles on each ring, Lambda
+     cycles, one fp64 Lagrangian, a 64-tile UCCSD(T) probe and
+     ump2.df_kernel.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, its error against the
@@ -151,6 +167,47 @@ ACT_HOLES, ACT_PARTICLES = 8, 106
 # fp32 against fp64 MP2 / MP-CC energies (the issue's bound, as phase 3)
 # and the fp32 solves' tolerances, a few fp32 roundings of E_corr
 TOL_FP32 = dict(conv_tol=1e-7, conv_tol_normt=1e-5, max_cycle=100)
+# open-shell pins in fp64: (E_SCF, E_corr(UCCSD), E(T) at tile 2), sto-3g,
+# SCF conv_tol 1e-12 / conv_tol_grad 1e-9, UCCSD 1e-11 / 1e-9, computed
+# once by the JAX package on the CPU:
+#   python - <<'PY'
+#   import jax; jax.config.update("jax_platforms", "cpu")
+#   jax.config.update("jax_enable_x64", True)
+#   from pyscf_mpcc_tpu import gto, scf
+#   from pyscf_mpcc_tpu.cc.driver import CCSD
+#   for atom, spin, cls in OS_PIN_CASES:       # the three cases below
+#       mf = getattr(scf, cls)(gto.M(atom=atom, basis="sto-3g", spin=spin))
+#       mf.conv_tol, mf.conv_tol_grad = 1e-12, 1e-9
+#       mf.kernel()
+#       cc = CCSD(mf); cc.conv_tol, cc.conv_tol_normt = 1e-11, 1e-9
+#       cc.kernel()
+#       print(cls, spin, repr(mf.e_tot), repr(cc.e_corr),
+#             repr(cc.ccsd_t(tile=2)))
+#   PY
+O2_ATOM = "O 0 0 0; O 0 0 1.21"
+H2O_ATOM = "O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587"
+OS_PIN_CASES = (
+    ("o2_uhf", O2_ATOM, 2, "UHF",
+     (-147.63404850505404, -0.10860561883268052, -0.000692304464899954)),
+    ("o2_rohf", O2_ATOM, 2, "ROHF",
+     (-147.6322746613174, -0.11036180382544002, -0.0007192839556885072)),
+    ("h2o_uhf", H2O_ATOM, 0, "UHF",
+     (-74.96306312972936, -0.04946749578176114, -6.73377348713469e-05)))
+# OH(H2O)3/cc-pVDZ, all electrons, default aux basis: the certified fp64
+# Lagrangian total energy of the JAX package's campaign
+# (docs/PARITY.md:142, examples/openshell_certify.py)
+E_OH3_DZ_CERT = -304.2937049109
+# certified fp32 against the fp64 card solve (docs/PARITY.md:3-4) and
+# the certified total against the campaign's.  Converged, the fp32
+# energy uncertified is already inside 1e-7 (3e-8, an NVIDIA H100 80GB
+# HBM3 at 700 W), so as in phase 7 a solve stopped early (CERT_EARLY)
+# must have its certified gap CERT_GAIN times below its uncertified one
+ATOL_OS_CERT, ATOL_OS_CAMPAIGN = 1e-7, 1e-6
+# OH(H2O)3/cc-pVTZ shape (nocca, noccb, nvira, nvirb, naux): nao 218,
+# nelec (20, 19), cc-pvtz-jkfit; spin-orbital virtuals 397 pad to 400,
+# 50 tile rows of edge 8, 22,100 (T) tiles
+OS_SHAPE = (20, 19, 198, 199, 526)
+OS_NTRIPS = 50 * 51 * 52 // 6
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
@@ -514,6 +571,302 @@ def mpcc_phase(torch, smi, cc, beris, bt1, bt2, sweep_sec, ntile):
         e_df_mp2=repr(float(e_df)),
         iterative_device_ring=json.dumps(it["device"]),
         iterative_host_ring=json.dumps(it["host"]), card=json.dumps(smi),
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+
+def open_shell_phase(torch, smi, dev):
+    """Phase 9: the open-shell path on the card (no hand kernel on it).
+    (a) sto-3g pins in fp64; (b) OH(H2O)3/cc-pVDZ through the entry
+    points, fp32 certified by the fp64 Lagrangian, and DF-UMP2; (c) the
+    OH(H2O)3/cc-pVTZ shape on synthetic integrals in fp32."""
+    from pyscf_mpcc_tpu_torch import ao2mo, gto, testing
+    from pyscf_mpcc_tpu_torch import scf as pscf
+    from pyscf_mpcc_tpu_torch.cc import lambda_ad, uccsd, uccsd_t
+    from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+    from pyscf_mpcc_tpu_torch.examples import uccsd_oh
+    from pyscf_mpcc_tpu_torch.mp import DFUMP2, ump2
+
+    f64, f32 = torch.float64, torch.float32
+    cpu = torch.device("cpu")
+    tight = dict(conv_tol=1e-11, conv_tol_normt=1e-9)
+
+    def maxdiff(xs, ys):
+        return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
+
+    # (a) the pins in fp64 on the card
+    t0 = time.perf_counter()
+    e_cs = {}
+    for name, atom, spin, cls, pin in OS_PIN_CASES:
+        mf = getattr(pscf, cls)(gto.M(atom=atom, basis="sto-3g", spin=spin))
+        mf.conv_tol, mf.conv_tol_grad = 1e-12, 1e-9
+        mf.kernel()
+        cc = CCSD(mf, device=dev, dtype=f64).set(**tight).run()
+        et = cc.ccsd_t(tile=2)
+        lam = {ring: lambda_ad.kernel_u(cc.t1, cc.t2, cc.eris,
+                                        conv_tol=1e-10, max_cycle=100,
+                                        diis_backend=ring)
+               for ring in ("host", "device")}
+        dl = maxdiff((*lam["host"][1], *lam["host"][2]),
+                     (*lam["device"][1], *lam["device"][2]))
+        mo = [torch.as_tensor(c, dtype=f64, device=dev) for c in mf.mo_coeff]
+        eri = torch.as_tensor(gto.intor_eri(mf.mol), dtype=f64, device=dev)
+        h = torch.as_tensor(mf.get_hcore(), dtype=f64, device=dev)
+        ints = (mo[0].T @ h @ mo[0], mo[1].T @ h @ mo[1],
+                ao2mo.full(eri, mo[0]),
+                ao2mo.general(eri, (mo[0], mo[0], mo[1], mo[1])),
+                ao2mo.full(eri, mo[1]))
+        (d1a, d1b), (d2aa, d2ab, d2bb) = lambda_ad.make_rdm12_u(
+            *ints, cc.t1, cc.t2, lam["host"][1], lam["host"][2],
+            *mf.mol.nelec)
+        e_rdm = float((ints[0] * d1a).sum() + (ints[1] * d1b).sum()
+                      + 0.5 * (ints[2] * d2aa).sum() + (ints[3] * d2ab).sum()
+                      + 0.5 * (ints[4] * d2bb).sum()) + mf.mol.energy_nuc()
+        d = (mf.e_tot - pin[0], cc.e_corr - pin[1], et - pin[2],
+             e_rdm - cc.e_tot)
+        if not (mf.converged and cc.converged
+                and all(c[0] for c in lam.values()) and abs(d[0]) < 1e-10
+                and abs(d[1]) < 1e-9 and abs(d[2]) < 1e-9
+                and dl < ATOL_LAMBDA and abs(d[3]) < 1e-8
+                and cc.t2[1].device.type == dev.type):
+            raise RuntimeError(f"{name} pins: dE(SCF, UCCSD, (T), RDM) {d}, "
+                               f"Lambda rings {dl}")
+        say(9, f"{name} pins fp64 ok", d_scf=f"{d[0]:.1e}",
+            d_uccsd=f"{d[1]:.1e}", d_t=f"{d[2]:.1e}", lambda_rings=f"{dl:.1e}",
+            rdm_identity=f"{d[3]:.1e}")
+        if name == "h2o_uhf":
+            e_cs = dict(uccsd=cc.e_corr, t=et)
+    # the closed shell through the restricted path (phase 2's engines)
+    rmf = pscf.RHF(gto.M(atom=H2O_ATOM, basis="sto-3g"))
+    rmf.conv_tol, rmf.conv_tol_grad = 1e-12, 1e-9
+    rmf.kernel()
+    rcc = CCSD(rmf, device=dev, dtype=f64).set(**tight).run()
+    d_r = (e_cs["uccsd"] - rcc.e_corr, e_cs["t"] - rcc.ccsd_t(tile=8))
+    if not (abs(d_r[0]) < 1e-9 and abs(d_r[1]) < 1e-9):
+        raise RuntimeError(f"closed-shell UCCSD vs RCCSD: {d_r}")
+    say(9, "h2o uhf = rhf path ok", d_uccsd_rccsd=f"{d_r[0]:.1e}",
+        d_t=f"{d_r[1]:.1e}", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # (b) OH(H2O)3/cc-pVDZ through the entry points
+    t0 = time.perf_counter()
+    mf = uccsd_oh.uhf("cc-pvdz")
+    t_scf = time.perf_counter() - t0
+    if not mf.converged:
+        raise RuntimeError("OH(H2O)3 UHF unconverged")
+    c32, s_cc = seconds(torch, lambda: CCSD(mf, device=dev, dtype=f32).set(
+        conv_tol=1e-8, conv_tol_normt=1e-6, diis_backend="device").run())
+    (cl, l1, l2), s_l = seconds(torch, lambda: lambda_ad.kernel_u(
+        c32.t1, c32.t2, c32.eris, conv_tol=3e-6, max_cycle=60,
+        diis_backend="device"))
+    e_cert, s_cert = seconds(torch, lambda: uccsd_oh.certify(c32, l1, l2))
+    et32, s_t = seconds(torch, lambda: c32.ccsd_t(tile=8))
+    # the fp64 reference: the energy to 1e-10; |dt| stalls near 1.2e-7
+    # here, in the JAX package's solver as in the port's (both read
+    # 1.24e-7 after 60 cycles with dE 6e-13 on the CPU in fp64:
+    # tools/uccsd_fp64_convergence.py), so the amplitude bound is the
+    # campaign's 1e-6
+    c64, s_cc64 = seconds(torch, lambda: CCSD(mf, device=dev, dtype=f64).set(
+        conv_tol=1e-10, conv_tol_normt=1e-6).run())
+    et64 = c64.ccsd_t(tile=8)
+    e_unc = float(uccsd.energy(tuple(x.double() for x in c32.t1),
+                               tuple(x.double() for x in c32.t2), c64.eris))
+    gaps = (c32.e_corr - c64.e_corr, e_unc - c64.e_corr,
+            e_cert - c64.e_corr)
+    d_camp = mf.e_tot + e_cert - E_OH3_DZ_CERT
+    # converged, the fp32 energy is already inside ATOL_OS_CERT; stopped
+    # early (phase 7's CERT_EARLY) the certificate must gain CERT_GAIN
+    c_e = CCSD(mf, device=dev, dtype=f32).set(
+        diis_backend="device", **CERT_EARLY).run()
+    _, l1_e, l2_e = lambda_ad.kernel_u(c_e.t1, c_e.t2, c_e.eris,
+                                       conv_tol=3e-6, max_cycle=60,
+                                       diis_backend="device")
+    gaps_e = (float(uccsd.energy(tuple(x.double() for x in c_e.t1),
+                                 tuple(x.double() for x in c_e.t2),
+                                 c64.eris)) - c64.e_corr,
+              uccsd_oh.certify(c_e, l1_e, l2_e) - c64.e_corr)
+    del c_e, l1_e, l2_e
+    if not (c32.converged and cl and c64.converged
+            and c32.t2[1].dtype == f32 and abs(gaps[2]) < ATOL_OS_CERT
+            and abs(gaps_e[1]) * CERT_GAIN < abs(gaps_e[0])
+            and abs(et32 - et64) < ATOL_MAIN_FP32
+            and abs(d_camp) < ATOL_OS_CAMPAIGN):
+        raise RuntimeError(
+            f"OH(H2O)3: gaps (raw, uncertified, certified) {gaps}, "
+            f"early (uncertified, certified) {gaps_e}, "
+            f"E(T) fp32-fp64 {et32 - et64}, certified total - campaign "
+            f"{d_camp} (E_UHF {mf.e_tot!r}), converged (fp32, Lambda, "
+            f"fp64) {c32.converged} {cl} {c64.converged}")
+    na, nb = mf.mol.nelec
+    say(9, "OH(H2O)3/cc-pVDZ ok", nao=mf.mol.nao, nelec=f"{na},{nb}",
+        naux=c32.eris.Lov_a.shape[0], e_uhf=repr(mf.e_tot),
+        e_corr_fp32=repr(c32.e_corr), e_corr_fp64=repr(c64.e_corr),
+        e_certified=repr(e_cert), raw_gap=f"{gaps[0]:.3e}",
+        uncertified_gap=f"{gaps[1]:.3e}", certified_gap=f"{gaps[2]:.3e}",
+        early_uncertified_gap=f"{gaps_e[0]:.3e}",
+        early_certified_gap=f"{gaps_e[1]:.3e}", min_gain=CERT_GAIN,
+        e_tot_certified=repr(mf.e_tot + e_cert),
+        d_campaign=f"{d_camp:.2e}", e_t_fp32=repr(et32),
+        e_t_fp64=repr(et64), d_t=f"{et32 - et64:.2e}",
+        sec_uhf_host=f"{t_scf:.1f}", sec_uccsd_fp32=f"{s_cc:.2f}",
+        sec_lambda_fp32=f"{s_l:.2f}", sec_certify_fp64=f"{s_cert:.2f}",
+        sec_t_fp32=f"{s_t:.2f}", sec_uccsd_fp64=f"{s_cc64:.2f}")
+    del c32, c64, l1, l2
+    out = []
+    for d in (dev, cpu):
+        pt, s_e = seconds(torch, lambda: DFUMP2(mf, device=d,
+                                                dtype=f64).run())
+        rel, s_r = seconds(torch, lambda: pt.make_rdm1(relaxed=True))
+        out.append((pt.e_corr, rel.cpu(), s_e, s_r))
+    de = abs(out[0][0] - out[1][0])
+    ddm = float((out[0][1] - out[1][1]).abs().max())
+    d_tr = float(torch.trace(out[0][1] @ torch.as_tensor(
+        mf.get_ovlp()))) - mf.mol.nelectron
+    if not (de < 1e-8 and ddm < 1e-8 and abs(d_tr) < 1e-8):
+        raise RuntimeError(f"DF-UMP2 card vs CPU: dE {de}, ddm {ddm}, "
+                           f"trace-N {d_tr}")
+    say(9, "OH(H2O)3 dfump2 fp64 ok", e_corr=repr(out[0][0]),
+        d_cpu=f"{de:.2e}", max_abs_ddm_cpu=f"{ddm:.2e}",
+        relaxed_trace_err=f"{d_tr:.2e}", sec_energy=f"{out[0][2]:.3f}",
+        sec_relaxed=f"{out[0][3]:.3f}", sec_relaxed_cpu=f"{out[1][3]:.3f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # (c) the OH(H2O)3/cc-pVTZ shape in fp32 on synthetic integrals
+    na, nb, va, vb, naux = OS_SHAPE
+    er = testing.synthetic_ueris(na, nb, va, vb, naux, device=dev,
+                                 dtype=f32, seed=0)
+    _, t1, t2 = uccsd.init_amps(er)
+    base = torch.cuda.memory_allocated()
+    uccsd.update_amps(t1, t2, er)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        (a1, a2), sec = seconds(torch, lambda: uccsd.update_amps(t1, t2, er))
+        times.append(sec)
+    peak = torch.cuda.max_memory_allocated()
+    sweep = statistics.median(times)
+    er64 = uccsd.UERIs(*(x.double() if torch.is_tensor(x) else x
+                         for x in er))
+    t64 = [tuple(x.double() for x in t1), tuple(x.double() for x in t2)]
+    (_, b2), sec64 = seconds(torch, lambda: uccsd.update_amps(*t64, er64))
+    rel = max(float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+              for a, b in zip(a2, b2))
+    if not (rel < RTOL_SWEEP_FP32
+            and all(torch.isfinite(x).all() for x in (*a1, *a2))):
+        raise RuntimeError(f"open-shell fp32 sweep vs fp64: {rel}")
+    del a1, a2, b2
+    # the host's share of a sweep: seinsum's own CPU time (the spin-case
+    # enumeration, outside the aten ops it launches) from torch.profiler
+    from torch.profiler import ProfilerActivity, profile, record_function
+    orig = uccsd.seinsum
+
+    host = [0.0]     # host seconds inside seinsum, its launches included
+
+    def traced(*args):
+        t = time.perf_counter()
+        with record_function("seinsum"):
+            out = orig(*args)
+        host[0] += time.perf_counter() - t
+        return out
+
+    uccsd.seinsum = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            uccsd.update_amps(t1, t2, er)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+    finally:
+        uccsd.seinsum = orig
+    # the CPU-side entry of the range (a GPU annotation of the same name,
+    # with no CPU time, can come with it)
+    se = max((e for e in prof.key_averages() if e.key == "seinsum"),
+             key=lambda e: e.self_cpu_time_total)
+    dev_us = sum(getattr(e, "device_time_total", 0) or 0
+                 for e in prof.key_averages()
+                 if e.key != "seinsum" and not e.key.startswith("aten::"))
+    say(9, "OH(H2O)3/cc-pVTZ-shape uccsd sweep fp32", shape=json.dumps(
+        OS_SHAPE), sec=" ".join(f"{t:.4f}" for t in times),
+        sec_median=f"{sweep:.4f}", peak_gib=f"{peak / 2**30:.2f}",
+        base_gib=f"{base / 2**30:.2f}", rel_t2_fp32_fp64=f"{rel:.3e}",
+        sec_fp64=f"{sec64:.3f}", seinsum_calls=se.count,
+        seinsum_self_cpu_s=f"{se.self_cpu_time_total / 1e6:.4f}",
+        seinsum_cpu_s=f"{se.cpu_time_total / 1e6:.4f}",
+        seinsum_host_wall_s=f"{host[0]:.4f}",
+        profiled_sweep_wall_s=f"{wall:.4f}",
+        device_kernel_s=f"{dev_us / 1e6:.4f}",
+        seinsum_host_share=f"{se.self_cpu_time_total / 1e6 / wall:.3f}",
+        card=json.dumps(smi), clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    del prof
+
+    # two CCSD cycles on each ring, damped by a level shift as in phase
+    # 7(c) (the synthetic iterates are not a molecule's)
+    shift, ring = 1e9, {}
+    for backend in ("host", "device"):
+        (_, e, c1, c2), s2 = seconds(torch, lambda: uccsd.kernel(
+            er, max_cycle=2, conv_tol=0.0, t1=t1, t2=t2, level_shift=shift,
+            diis_backend=backend))
+        if not (all(torch.isfinite(x).all() for x in (*c1, *c2))
+                and abs(e) < float("inf")):
+            raise RuntimeError(f"open-shell {backend} ring: E {e}")
+        ring[backend] = s2 / 2
+        del c1, c2
+    # two Lambda cycles (device ring; l = t, the MP2 amplitudes)
+    torch.cuda.reset_peak_memory_stats()
+    (_, lb1, lb2), s_lam = seconds(torch, lambda: lambda_ad.kernel_u(
+        t1, t2, er, max_cycle=2, conv_tol=0.0, diis_backend="device"))
+    peak_l = torch.cuda.max_memory_allocated()
+    if not all(torch.isfinite(x).all() for x in (*lb1, *lb2)):
+        raise RuntimeError("non-finite open-shell Lambda multipliers")
+    del lb1, lb2
+    torch.cuda.reset_peak_memory_stats()
+    e_lag, s_lag = seconds(torch, lambda: float(
+        lambda_ad.lagrangian_energy_u(*t64, *t64, er64)))
+    peak_lag = torch.cuda.max_memory_allocated()
+    if not abs(e_lag) < float("inf"):
+        raise RuntimeError(f"non-finite open-shell Lagrangian {e_lag}")
+    del er64, t64
+    say(9, "OH(H2O)3/cc-pVTZ-shape cycles fp32", level_shift=shift,
+        sec_ccsd_cycle_host=f"{ring['host']:.3f}",
+        sec_ccsd_cycle_device=f"{ring['device']:.3f}",
+        sec_lambda_cycle=f"{s_lam / 2:.3f}",
+        lambda_sweeps=f"{s_lam / 2 / sweep:.2f}",
+        lambda_peak_gib=f"{peak_l / 2**30:.2f}",
+        sec_lagrangian_fp64=f"{s_lag:.3f}",
+        lagrangian_peak_gib=f"{peak_lag / 2**30:.2f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    # the 64-tile UCCSD(T) probe through the entry point, and DF-UMP2
+    orig_trips = uccsd_t._tile_triples
+    uccsd_t._tile_triples = lambda nvt: orig_trips(nvt)[:NPROBE]
+    try:
+        uccsd_t.kernel(t1, t2, er, tile=TILE)
+        torch.cuda.reset_peak_memory_stats()
+        e_tp, s_tp = seconds(torch, lambda: uccsd_t.kernel(t1, t2, er,
+                                                           tile=TILE))
+    finally:
+        uccsd_t._tile_triples = orig_trips
+    peak_t = torch.cuda.max_memory_allocated()
+    if not abs(e_tp) < float("inf"):
+        raise RuntimeError(f"non-finite UCCSD(T) probe {e_tp}")
+    ms_tile = s_tp / NPROBE * 1e3
+    mo_e = [(e[:n], e[n:]) for e, n in zip(er.mo_energy, (na, nb))]
+    ms_mp2 = cuda_ms(torch, lambda: ump2.df_kernel(mo_e, er.Lov_a,
+                                                   er.Lov_b), 5)
+    # where the time of a (T) tile and of a sweep goes
+    big = uccsd_t._prepare(t1, t2, er, TILE, f32, None, None)
+    abc = uccsd_t._tile_triples(big["nvp"] // TILE)[NPROBE - 1]
+    tile_e = uccsd_t.make_tile_energy(big)
+    say(9, "(T) tile trace", tile=json.dumps(abc.tolist()),
+        top=json.dumps(trace_top(torch, lambda: tile_e(abc), 3)))
+    del big, tile_e
+    say(9, "uccsd sweep trace", top=json.dumps(trace_top(
+        torch, lambda: uccsd.update_amps(t1, t2, er), 1, k=8)))
+    say(9, "OH(H2O)3/cc-pVTZ-shape (T) probe fp32", tiles=NPROBE,
+        ms_per_tile=f"{ms_tile:.3f}", tiles_full=OS_NTRIPS,
+        sec_full_estimate=f"{ms_tile * OS_NTRIPS / 1e3:.1f}",
+        peak_gib=f"{peak_t / 2**30:.2f}", e_probe=repr(e_tp),
+        ump2_df_kernel_ms=f"{ms_mp2:.3f}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
 
 
@@ -1069,15 +1422,19 @@ def main():
     for grid in ((pv.T,), (pv.T, pv.T)):
         if not torch.equal(pv.dispatch(x, grid), pv.dispatch_reference(x)):
             raise RuntimeError(f"dispatch grid={grid} differs from plain")
+    # rows 4 and 5 time the kernel and its plain version alike: NCHAIN
+    # calls replayed from a CUDA graph (pv.graph_ms), as the floor is
     g1 = r1[str((pv.T,))]
     rec["dispatch"] = dict(
         err=0.0, ms=g1["ms_graph"],
-        plain_ms=pv.cuda_ms(lambda: pv.dispatch_reference(x), 64, dev),
+        plain_ms=pv.graph_ms(lambda: pv.dispatch_reference(x), dev),
         bound=probe_bound(2 * 4, {}), library=None)
     g2 = r1[str((pv.T, pv.T))]
     say(6, "p1 dispatch ok (exact)",
         ms_stream_graph_grid_T=f"{g1['ms']:.5f}/{g1['ms_graph']:.5f}",
         ms_stream_graph_grid_TxT=f"{g2['ms']:.5f}/{g2['ms_graph']:.5f}",
+        plain_ms_stream=f"{pv.cuda_ms(lambda: pv.dispatch_reference(x),
+                                      64, dev):.5f}",
         plain_ms=f"{rec['dispatch']['plain_ms']:.5f}",
         bound_ms=f"{rec['dispatch']['bound'][0]:.5f}",
         bound_by=rec["dispatch"]["bound"][1])
@@ -1085,12 +1442,18 @@ def main():
     x = rand(8, pv.OO)
     if not torch.equal(pv.smem_copy(x, r2["cap"]), pv.smem_copy_reference(x)):
         raise RuntimeError("smem kernel differs from plain")
+    # the size attribute set once (ms_graph); ms sets it at every launch
     rec["smem"] = dict(
-        err=0.0, ms=r2["ms"],
-        plain_ms=pv.cuda_ms(lambda: pv.smem_copy_reference(x), 20, dev),
+        err=0.0, ms=r2["ms_graph"],
+        plain_ms=pv.graph_ms(lambda: pv.smem_copy_reference(x), dev),
         bound=probe_bound(4 * pv.OO + 4, {}), library=None)
     say(6, "p2 smem ok (exact)", cap_bytes=r2["cap"],
-        ms=f"{r2['ms']:.5f}", plain_ms=f"{rec['smem']['plain_ms']:.5f}",
+        ms_stream_attr_each_launch=f"{r2['ms']:.5f}",
+        ms_graph=f"{r2['ms_graph']:.5f}",
+        share_of_bound=f"{rec['smem']['bound'][0] / r2['ms_graph']:.3f}",
+        plain_ms_stream=f"{pv.cuda_ms(lambda: pv.smem_copy_reference(x),
+                                      20, dev):.5f}",
+        plain_ms=f"{rec['smem']['plain_ms']:.5f}",
         bound_ms=f"{rec['smem']['bound'][0]:.5f}",
         bound_by=rec["smem"]["bound"][1])
 
@@ -1416,6 +1779,13 @@ def main():
     t0 = time.perf_counter()
     mpcc_phase(torch, smi, cc, beris, bt1, bt2, sec, ntile)
     say(8, "done", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 9: the open-shell path ---------------------------------
+    del beris, bt1, bt2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    open_shell_phase(torch, smi, dev)
+    say(9, "done", seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

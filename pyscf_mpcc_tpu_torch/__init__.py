@@ -4,18 +4,23 @@ The JAX package ``pyscf_mpcc_tpu`` is the reference; this package keeps its
 module layout and public function names so each module's counterpart is
 easy to find:
 
-- ``scf``           host NumPy RHF (copy of the reference's RHF; the JAX
-                    ``scf`` package cannot be imported without jax),
+- ``scf``           host NumPy RHF, UHF, ROHF and the energy-DIIS schemes
+                    (copies of the JAX package's; its ``scf`` package
+                    cannot be imported without jax),
 - ``ao2mo``         AO -> MO quarter transforms on tensors,
 - ``cc.eris``       MO integral containers (incore and density-fitted),
 - ``cc.rccsd``      closed-shell CCSD sweep and the host-DIIS solver,
 - ``cc.ccsd_t``     perturbative triples, through ``ops.triples_combine``
                     (engine 'fused') or ``ops.triples_resident`` ('resident'),
-- ``cc.driver``     the ``CCSD(mf)`` facade (on the CUDA device unless
+- ``cc.uccsd``, ``cc.uccsd_t``  open-shell CCSD over spin-traced blocks
+                    (``cc.spinsum``) and its (T) correction,
+- ``cc.driver``     the ``CCSD(mf)`` facade, restricted or unrestricted
+                    by the mean field (on the CUDA device unless
                     ``device=torch.device('cpu')`` is passed),
-- ``mp``            closed-shell MP2: canonical, SCS, DF, the
-                    non-canonical iterative solver, and DF-MP2 with
-                    relaxed densities (``DFRMP2``, ``SCSDFRMP2``),
+- ``mp``            MP2, closed shell (canonical, SCS, DF, the
+                    non-canonical iterative solver) and unrestricted
+                    (``ump2``), and DF-MP2 with relaxed densities
+                    (``DFRMP2``, ``SCSDFRMP2``, ``DFUMP2``),
 - ``mpcc``          the restricted MP-CC hybrid: block masks, the masked
                     CCSD solver, the DF low-level solver, the fragmented
                     workflow and the ``MPCC(mf)`` facade,
@@ -27,7 +32,7 @@ easy to find:
 
 The framework-free host layers (``gto`` with its native integral engine
 and basis library, ``df``, ``lib.diis``, ``lib.logger``, ``lib.stream``,
-``config``, ``lo.pm``, ``mpcc.masks``) are copies of the JAX package's, with their imports pointed
+``config``, ``lo.pm``, ``mpcc.masks``, ``scf``) are copies of the JAX package's, with their imports pointed
 here: the port imports nothing of ``pyscf_mpcc_tpu`` and nothing of jax.
 """
 

@@ -1,9 +1,13 @@
-"""User-facing CCSD method object.
+"""User-facing CCSD method objects.
 
-Port of the restricted part of ``pyscf_mpcc_tpu/cc/driver.py``:
-``CCSD(mf, device=...).run()``, then ``.ccsd_t()``, ``.solve_lambda()``,
+Port of ``pyscf_mpcc_tpu/cc/driver.py``: ``CCSD(mf, device=...)``
+dispatches on the mean field, RHF to ``RCCSDDriver`` and UHF/ROHF (or a
+spin-resolved ``mo_coeff``) to ``UCCSDDriver``.  The restricted driver
+runs ``.run()``, ``.ccsd_t()``, ``.solve_lambda()``,
 ``.make_rdm1()``/``make_rdm2()``/``make_rdm12()``, the T1/D1/D2
-diagnostics, chk and DIIS-ring restarts and the geometry scanner
+diagnostics, chk and DIIS-ring restarts; the unrestricted one ``.run()``
+and ``.ccsd_t()`` (its Λ, certified energy and RDMs are the ``*_u``
+functions of cc/lambda_ad).  Both have the geometry scanner
 (``as_scanner``).  Frozen core via an integer ``frozen`` (lowest orbitals
 dropped from the correlation space).  The device defaults to CUDA
 (lib/device.resolve; pass ``device=torch.device("cpu")`` for the CPU); the
@@ -22,9 +26,9 @@ from pyscf_mpcc_tpu_torch.lib import logger
 from pyscf_mpcc_tpu_torch.lib.stream import StreamObject
 from pyscf_mpcc_tpu_torch.cc import ccsd_t as ccsd_t_mod
 from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
-from pyscf_mpcc_tpu_torch.cc import lambda_ad, rccsd
+from pyscf_mpcc_tpu_torch.cc import lambda_ad, rccsd, uccsd
 from pyscf_mpcc_tpu_torch.lib import device as _dev
-from pyscf_mpcc_tpu_torch.scf.hf import RHF
+from pyscf_mpcc_tpu_torch.scf.hf import UHF
 
 
 def _not_ported(what, item):
@@ -221,6 +225,91 @@ class RCCSDDriver(StreamObject):
         return CCSDScanner(self)
 
 
+class UCCSDDriver(StreamObject):
+    """Unrestricted CCSD on a UHF/ROHF (or RHF) mean field, on the driver's
+    device and dtype (lib/device)."""
+    conv_tol = config.CC_CONV_TOL
+    conv_tol_normt = config.CC_CONV_TOL_NORMT
+    max_cycle = 100
+    diis_space = 6
+    level_shift = 0.0
+    # 'host' (lib.diis) or 'device' (lib.device_diis) DIIS ring
+    diis_backend = "host"
+
+    def __init__(self, mf, frozen=0, mo_coeff=None, *, device=None,
+                 dtype=None):
+        self.device, self.dtype = _dev.resolve(device, dtype)
+        self._scf = mf
+        self.mol = mf.mol
+        self.frozen = int(frozen or 0)
+        mo = np.asarray(mf.mo_coeff if mo_coeff is None else mo_coeff)
+        if mo.ndim == 2:
+            mo = np.array([mo, mo])
+        self.mo_coeff = mo
+        na, nb = self.mol.nelec
+        self.nocc = (na - self.frozen, nb - self.frozen)
+        self.e_corr = None
+        self.t1 = self.t2 = None
+        self.converged = False
+        self.eris = None
+        self._declare_keys()
+
+    def ao2mo(self, mo_coeff=None):
+        mo = self.mo_coeff if mo_coeff is None else np.asarray(mo_coeff)
+        fa, fb = uccsd.uhf_focks(self._scf)
+        f = self.frozen
+        kw = dict(dtype=self.dtype, device=self.device)
+        if getattr(self._scf, "with_df", None) is not None:
+            self.eris = uccsd.make_eris_df(
+                self._scf.with_df.B_ao(), mo[0][:, f:], mo[1][:, f:],
+                fa, fb, self.nocc[0], self.nocc[1], **kw)
+        else:
+            self.eris = uccsd.make_eris_incore(
+                gto.intor_eri(self.mol), mo[0][:, f:], mo[1][:, f:], fa, fb,
+                self.nocc[0], self.nocc[1], **kw)
+        return self.eris
+
+    def kernel(self, t1=None, t2=None, eris=None):
+        log = logger.Logger(verbose=self.verbose)
+        tic = log.timer("")
+        if eris is None:
+            eris = self.eris or self.ao2mo()
+            tic = log.timer("UCCSD integral transform", *tic)
+        self.converged, self.e_corr, self.t1, self.t2 = uccsd.kernel(
+            eris, max_cycle=self.max_cycle, conv_tol=self.conv_tol,
+            conv_tol_normt=self.conv_tol_normt, diis_space=self.diis_space,
+            level_shift=self.level_shift, t1=t1, t2=t2,
+            diis_backend=self.diis_backend, verbose=self.verbose)
+        log.timer("UCCSD iterations", *tic)
+        return self.e_corr, self.t1, self.t2
+
+    ccsd = kernel
+
+    @property
+    def e_tot(self):
+        return self._scf.e_tot + self.e_corr
+
+    def ipccsd(self, *args, **kwargs):
+        _not_ported("EOM-UCCSD (cc/eom)", "A14")
+
+    eaccsd = ipccsd
+
+    def ccsd_t(self, t1=None, t2=None, eris=None, tile=8):
+        """UCCSD(T) through the tiled spin-orbital kernel
+        (cc/uccsd_t.py), DF-direct when the eris carry 3-center factors;
+        frozen > 0 works, since it reads the frozen-sliced eris."""
+        from pyscf_mpcc_tpu_torch.cc import uccsd_t
+        if eris is None:
+            eris = self.eris or self.ao2mo()
+        return uccsd_t.kernel(t1 if t1 is not None else self.t1,
+                              t2 if t2 is not None else self.t2, eris,
+                              tile=tile)
+
+    def as_scanner(self):
+        """UCCSD geometry scanner; see CCSDScanner."""
+        return CCSDScanner(self)
+
+
 class CCSDScanner:
     """Callable PES scanner over CCSD solutions: ``scanner(mol_or_atom)``
     runs the SCF scanner, then solves CCSD seeded with the previous
@@ -241,8 +330,10 @@ class CCSDScanner:
         cc = type(old)(mf, frozen=old.frozen, device=old.device,
                        dtype=old.dtype)
         for k in ("conv_tol", "conv_tol_normt", "max_cycle", "diis_space",
-                  "level_shift", "verbose", "ntile"):
+                  "level_shift", "verbose"):
             setattr(cc, k, getattr(old, k))
+        if hasattr(old, "ntile"):
+            cc.ntile = old.ntile
         # the same nao, nelec and frozen give the same amplitude shapes
         t1 = t2 = None
         if old.t1 is not None and mf.mol.nao == old.mol.nao \
@@ -256,8 +347,8 @@ class CCSDScanner:
 
 
 def CCSD(mf, frozen=0, mo_coeff=None, *, device=None, dtype=None):
-    """Factory mirroring the reference's cc.CCSD dispatch; closed-shell
-    RHF references only (UCCSD is ROADMAP A11)."""
-    if not isinstance(mf, RHF) or np.asarray(mf.mo_coeff).ndim != 2:
-        _not_ported(f"CCSD on {type(mf).__name__}", "A11 (open shell)")
+    """Factory mirroring the reference's cc.CCSD dispatch: UHF/ROHF (or a
+    spin-resolved mo_coeff) -> UCCSDDriver, RHF -> RCCSDDriver."""
+    if isinstance(mf, UHF) or np.asarray(mf.mo_coeff).ndim == 3:
+        return UCCSDDriver(mf, frozen, mo_coeff, device=device, dtype=dtype)
     return RCCSDDriver(mf, frozen, mo_coeff, device=device, dtype=dtype)

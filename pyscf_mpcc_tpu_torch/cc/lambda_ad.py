@@ -17,8 +17,13 @@ Port of the restricted part of ``pyscf_mpcc_tpu/cc/lambda_ad.py``:
 - ``make_rdm12``: L is linear in the MO integrals at fixed HF density,
   amplitudes and multipliers, so rdm1 = dL/dh and rdm2 = 2 dL/dg exactly.
 
-The unrestricted functions are ROADMAP A11; the Ozaki ladder of the
-certification is not ported (ROADMAP rule 3: the card has native fp64).
+The unrestricted part (``residual_u``, ``kernel_u``,
+``lagrangian_energy_u``, ``make_rdm12_u``) is the same construction over
+the UCCSD residual: one ``torch.autograd.grad`` of the whole spin-traced
+residual a step, with the opposite-spin ladder tiles and the same-spin
+ladder pairs recomputed in the backward pass (cc/uccsd._ladder_tiled).
+The Ozaki ladder of the certification is not ported (ROADMAP rule 3: the
+card has native fp64).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import torch
 
 from pyscf_mpcc_tpu_torch.cc import rccsd
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs
+
+einsum = torch.einsum
 
 
 def _denominators(eris, nocc):
@@ -252,3 +259,203 @@ def make_rdm12(h_mo, eri_mo, t1, t2, l1, l2, nocc, ntile=1, m1=None,
     rdm2 = 0.25 * (rdm2 + rdm2.permute(1, 0, 3, 2)
                    + rdm2.permute(2, 3, 0, 1) + rdm2.permute(3, 2, 1, 0))
     return rdm1, rdm2
+
+
+# ---------------------------------------------------------------------------
+# unrestricted Lambda (the same construction over the UCCSD residual)
+# ---------------------------------------------------------------------------
+
+def _u_denoms(eris_u):
+    from pyscf_mpcc_tpu_torch.cc import uccsd as umod
+    d1 = umod._eia(eris_u)
+    return d1, umod._d2(*d1)
+
+
+def residual_u(t1, t2, eris_u, m=None):
+    """UCCSD residual: R = (update(t) - t) * D per channel; with masks
+    m = (m1a, m1b, m2aa, m2ab, m2bb), frozen blocks have R = 0."""
+    from pyscf_mpcc_tpu_torch.cc import uccsd as umod
+    d1, d2 = _u_denoms(eris_u)
+    t1n, t2n = umod.update_amps(t1, t2, eris_u)
+    r1 = tuple((a - b) * d for a, b, d in zip(t1n, t1, d1))
+    r2 = tuple((a - b) * d for a, b, d in zip(t2n, t2, d2))
+    if m is not None:
+        r1 = tuple(_mask(mm, r) for mm, r in zip(m[:2], r1))
+        r2 = tuple(_mask(mm, r) for mm, r in zip(m[2:], r2))
+    return r1, r2
+
+
+def _vdots(xs, ys):
+    return sum(torch.vdot(a.reshape(-1), b.reshape(-1))
+               for a, b in zip(xs, ys))
+
+
+def lagrangian_energy_u(t1, t2, l1, l2, eris_u):
+    """Unrestricted Lagrangian estimate E_L = E(t) + <l, R(t)> of the
+    correlation energy (a 0-d tensor) at possibly inexact amplitudes, the
+    open-shell twin of :func:`lagrangian_energy`.  It consumes the UERIs
+    directly (DF-factorized on a DF container), so the fp64 certification
+    never materializes an nmo^4 tensor."""
+    from pyscf_mpcc_tpu_torch.cc import uccsd as umod
+    e = umod.energy(t1, t2, eris_u)
+    r1, r2 = residual_u(t1, t2, eris_u)
+    return e + _vdots((*l1, *l2), (*r1, *r2))
+
+
+def _lambda_step_u(l1, l2, t1, t2, eris_u, m=None):
+    """One Jacobi sweep of lambda^T (dR/dt) = -dE/dt: the energy gradient
+    plus one vjp of the residual (``torch.autograd.grad``).  Returns
+    (l1new, l2new, res1, res2)."""
+    from pyscf_mpcc_tpu_torch.cc import uccsd as umod
+    d1, d2 = _u_denoms(eris_u)
+    with torch.enable_grad():
+        a = _leaves(*t1, *t2)
+        de = torch.autograd.grad(umod.energy(a[:2], a[2:], eris_u), a)
+    with torch.enable_grad():
+        a = _leaves(*t1, *t2)
+        r1, r2 = residual_u(a[:2], a[2:], eris_u, m)
+        j = torch.autograd.grad((*r1, *r2), a, (*l1, *l2))
+        del r1, r2
+    res = [x + y for x, y in zip(de, j)]
+    del de, j
+    # project onto the antisymmetric (aa/bb) manifolds
+    for k in (2, 4):
+        r = res[k]
+        res[k] = 0.25 * (r - r.permute(1, 0, 2, 3) - r.permute(0, 1, 3, 2)
+                         + r.permute(1, 0, 3, 2))
+    if m is not None:
+        res = [_mask(mm, r) for mm, r in zip(m, res)]
+    res1, res2 = tuple(res[:2]), tuple(res[2:])
+    l1n = tuple(x + r / d for x, r, d in zip(l1, res1, d1))
+    l2n = tuple(x + r / d for x, r, d in zip(l2, res2, d2))
+    return l1n, l2n, res1, res2
+
+
+def kernel_u(t1, t2, eris_u, max_cycle=50, conv_tol=1e-7, diis_space=6,
+             verbose=0, masks=None, diis_backend="host"):
+    """Unrestricted Lambda solver.  Returns (converged, l1, l2).
+
+    l1/l2 start at copies of t1/t2.  masks: (m1a, m1b, m2aa, m2ab, m2bb)
+    frozen-block masks (those equations dropped, their multipliers held).
+    diis_backend='device' keeps the ring on the device
+    (lib/device_diis.update_hostsolve): the five multiplier blocks never
+    leave it."""
+    from pyscf_mpcc_tpu_torch.cc import uccsd as umod
+    from pyscf_mpcc_tpu_torch.lib import logger as lg
+    from pyscf_mpcc_tpu_torch.lib.diis import DIIS
+    if diis_backend not in ("host", "device"):
+        raise ValueError(f"unknown diis_backend {diis_backend!r}")
+    log = lg.Logger(verbose=verbose)
+    l1 = tuple(x.clone() for x in t1)
+    l2 = tuple(x.clone() for x in t2)
+    shapes = [x.shape for x in (*l1, *l2)]
+    dev, dt = l2[1].device, l2[1].dtype
+    if diis_backend == "device":
+        from pyscf_mpcc_tpu_torch.lib import device_diis
+        dstate = device_diis.init(sum(int(np.prod(s)) for s in shapes),
+                                  diis_space, dt, device=dev)
+    else:
+        diis = DIIS(space=diis_space)
+    converged = False
+    for it in range(max_cycle):
+        l1n, l2n, r1, r2 = _lambda_step_u(l1, l2, t1, t2, eris_u, masks)
+        del l1, l2
+        resn = sum(float(torch.linalg.norm(x)) for x in (*r1, *r2))
+        vec_new = umod.amplitudes_to_vector(l1n, l2n)
+        err_new = umod.amplitudes_to_vector(r1, r2)
+        del l1n, l2n, r1, r2
+        if diis_backend == "device":
+            dstate, vec = device_diis.update_hostsolve(dstate, vec_new,
+                                                       err_new)
+        else:
+            vec = torch.from_numpy(diis.update(
+                vec_new.cpu().numpy(),
+                xerr=err_new.cpu().numpy())).to(dev, dt)
+        del vec_new, err_new
+        l1, l2 = umod.vector_to_amplitudes(vec, shapes)
+        del vec
+        log.info("ulambda cycle %2d  |res| = %9.3e", it, resn)
+        if resn < conv_tol:
+            converged = True
+            break
+    return converged, l1, l2
+
+
+def _u_fock_of_integrals(h_a, h_b, g_aa, g_ab, g_bb, nocca, noccb):
+    """(fa, fb, e_hf) as differentiable functionals of the per-spin MO
+    integrals."""
+    def occ_dm(n, nocc, like):
+        d = torch.zeros(n, dtype=like.dtype, device=like.device)
+        d[:nocc] = 1.0
+        return torch.diag(d)
+
+    dma = occ_dm(h_a.shape[0], nocca, h_a)
+    dmb = occ_dm(h_b.shape[0], noccb, h_b)
+    ja = (einsum("pqrs,rs->pq", g_aa, dma)
+          + einsum("pqRS,RS->pq", g_ab, dmb))
+    jb = (einsum("PQRS,RS->PQ", g_bb, dmb)
+          + einsum("pqRS,pq->RS", g_ab, dma))
+    ka = einsum("prqs,rs->pq", g_aa, dma)
+    kb = einsum("PRQS,RS->PQ", g_bb, dmb)
+    fa = h_a + ja - ka
+    fb = h_b + jb - kb
+    e_hf = (torch.sum(dma * h_a) + torch.sum(dmb * h_b)
+            + 0.5 * (torch.sum(dma * (ja - ka)) + torch.sum(dmb * (jb - kb))))
+    return fa, fb, e_hf
+
+
+def _u_lagrangian_of_integrals(h_a, h_b, g_aa, g_ab, g_bb, t1, t2, l1, l2,
+                               nocca, noccb):
+    """UHF-CCSD total-energy Lagrangian as a linear functional of the
+    per-spin MO integrals (materialized blocks)."""
+    from pyscf_mpcc_tpu_torch.cc import uccsd as umod
+    nmoa, nmob = h_a.shape[0], h_b.shape[0]
+    fa, fb, e_hf = _u_fock_of_integrals(h_a, h_b, g_aa, g_ab, g_bb,
+                                        nocca, noccb)
+    oa, va = slice(0, nocca), slice(nocca, nmoa)
+    ob, vb = slice(0, noccb), slice(noccb, nmob)
+    g_ba = g_ab.permute(2, 3, 0, 1)
+    eris = umod.UERIs(
+        focka=fa, fockb=fb, nocca=nocca, noccb=noccb,
+        oooo=g_aa[oa, oa, oa, oa], ovoo=g_aa[oa, va, oa, oa],
+        ovov=g_aa[oa, va, oa, va], oovv=g_aa[oa, oa, va, va],
+        ovvo=g_aa[oa, va, va, oa],
+        OOOO=g_bb[ob, ob, ob, ob], OVOO=g_bb[ob, vb, ob, ob],
+        OVOV=g_bb[ob, vb, ob, vb], OOVV=g_bb[ob, ob, vb, vb],
+        OVVO=g_bb[ob, vb, vb, ob],
+        ooOO=g_ab[oa, oa, ob, ob], ovOO=g_ab[oa, va, ob, ob],
+        OVoo=g_ba[ob, vb, oa, oa], ovOV=g_ab[oa, va, ob, vb],
+        ooVV=g_ab[oa, oa, vb, vb], OOvv=g_ba[ob, ob, va, va],
+        ovVO=g_ab[oa, va, vb, ob], OVvo=g_ba[ob, vb, va, oa],
+        ovvv=g_aa[oa, va, va, va], OVVV=g_bb[ob, vb, vb, vb],
+        ovVV=g_ab[oa, va, vb, vb], OVvv=g_ba[ob, vb, va, va],
+        vvvv=g_aa[va, va, va, va], VVVV=g_bb[vb, vb, vb, vb],
+        vvVV=g_ab[va, va, vb, vb],
+    )
+    e_corr = umod.energy(t1, t2, eris)
+    r1, r2 = residual_u(t1, t2, eris)
+    return e_hf + e_corr + _vdots((*l1, *l2), (*r1, *r2))
+
+
+def make_rdm12_u(h_a, h_b, g_aa, g_ab, g_bb, t1, t2, l1, l2, nocca,
+                 noccb):
+    """UCCSD response densities ((dm1a, dm1b), (dm2aa, dm2ab, dm2bb)) in
+    the per-spin MO bases, chemists' convention, satisfying
+
+        E_elec = h_a.dm1a + h_b.dm1b + 1/2 g_aa.dm2aa + 1/2 g_bb.dm2bb
+                 + g_ab.dm2ab
+
+    exactly (the Lagrangian is linear in every integral tensor)."""
+    with torch.enable_grad():
+        ints = _leaves(h_a, h_b, g_aa, g_ab, g_bb)
+        lag = _u_lagrangian_of_integrals(*ints, t1, t2, l1, l2, nocca,
+                                         noccb)
+        dha, dhb, dgaa, dgab, dgbb = torch.autograd.grad(lag, ints)
+
+    def sym4(x):
+        return 0.25 * (x + x.permute(1, 0, 3, 2) + x.permute(2, 3, 0, 1)
+                       + x.permute(3, 2, 1, 0))
+
+    return ((0.5 * (dha + dha.T), 0.5 * (dhb + dhb.T)),
+            (2.0 * sym4(dgaa), 0.5 * (dgab + dgab.permute(1, 0, 3, 2)),
+             2.0 * sym4(dgbb)))

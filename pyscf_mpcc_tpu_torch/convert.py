@@ -6,6 +6,8 @@ and hand the same arrays to both packages:
     fields = {k: None if v is None else np.asarray(v)
               for k, v in jax_eris._asdict().items()}
     eris = eris_from_numpy(fields, device, dtype)
+
+and ``ueris_from_numpy`` does the same for the unrestricted container.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs
+from pyscf_mpcc_tpu_torch.cc.uccsd import UERIs
 from pyscf_mpcc_tpu_torch.lib import device as _dev
 
 
@@ -36,6 +39,24 @@ def eris_from_numpy(fields, device, dtype=None):
     return RERIs(**{k: (None if fields.get(k) is None
                         else _tensor(fields[k], device, dtype))
                     for k in RERIs._fields})
+
+
+def ueris_from_numpy(fields, device, dtype=None):
+    """The port's UERIs from ``{name: np.ndarray | int | None}`` (the
+    JAX package's UERIs fields as numpy arrays; nocca/noccb as ints).
+    Unknown field names raise."""
+    device, dtype = _dev.resolve(device, dtype)
+    unknown = set(fields) - set(UERIs._fields)
+    if unknown:
+        raise ValueError(f"unknown UERIs fields {sorted(unknown)}")
+    out = {}
+    for k in UERIs._fields:
+        v = fields.get(k)
+        if k in ("nocca", "noccb"):
+            out[k] = int(v)
+        else:
+            out[k] = None if v is None else _tensor(v, device, dtype)
+    return UERIs(**out)
 
 
 def amps_from_numpy(t1, t2, device, dtype=None):

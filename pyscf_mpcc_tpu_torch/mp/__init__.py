@@ -1,15 +1,17 @@
-"""Closed-shell MP2: ``mp2`` (canonical, SCS split, DF, the non-canonical
-iterative solver) and the DF-MP2 drivers with relaxed densities.
+"""MP2: ``mp2`` (canonical, SCS split, DF, the non-canonical iterative
+solver), ``ump2`` (its unrestricted counterpart), and the DF-MP2 drivers
+with relaxed densities (``DFRMP2``, ``SCSDFRMP2``, ``dfump2.DFUMP2``).
 
-The open-shell and generalized MP2 modules and MP2-F12 (``ump2``,
-``dfump2``, ``gmp2``, ``dfgmp2``, ``mp2f12``) are ROADMAP A10b, not ported
-yet: asking this package for one raises NotImplementedError.
+The generalized MP2 modules and MP2-F12 (``gmp2``, ``dfgmp2``,
+``mp2f12``) are ROADMAP A10b, not ported yet: asking this package for one
+raises NotImplementedError.
 """
 
-from pyscf_mpcc_tpu_torch.mp import mp2  # noqa: F401
+from pyscf_mpcc_tpu_torch.mp import dfump2, mp2, ump2  # noqa: F401
 from pyscf_mpcc_tpu_torch.mp.dfmp2 import DFRMP2, SCSDFRMP2  # noqa: F401
+from pyscf_mpcc_tpu_torch.mp.dfump2 import DFUMP2  # noqa: F401
 
-_NOT_PORTED = ("ump2", "dfump2", "gmp2", "dfgmp2", "mp2f12", "GMP2")
+_NOT_PORTED = ("gmp2", "dfgmp2", "mp2f12", "GMP2")
 
 
 def __getattr__(name):

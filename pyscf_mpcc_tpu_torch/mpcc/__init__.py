@@ -2,9 +2,8 @@
 the DF screened-CC2 low-level solver (``lowlevel``), the fragmented
 workflow and the ``MPCC(mf)`` facade.
 
-The open-shell modules (``umpccsd``, ``oomp2``) are ROADMAP A15b, after
-the open-shell CC (A11): asking this package for one raises
-NotImplementedError.
+The open-shell modules (``umpccsd``, ``oomp2``) are ROADMAP A15b: asking
+this package for one raises NotImplementedError.
 """
 
 from pyscf_mpcc_tpu_torch.mpcc import (  # noqa: F401
@@ -17,5 +16,5 @@ _NOT_PORTED = ("umpccsd", "oomp2")
 def __getattr__(name):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"mpcc.{name} is ROADMAP A15b (after A11), not ported yet")
+            f"mpcc.{name} is ROADMAP A15b, not ported yet")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -22,7 +22,7 @@ class MPCC:
     """Restricted MP-CC driver.
 
     Like the reference, requires a DF mean field (the low-level solver is
-    DF-native); rejects unrestricted references for now (ROADMAP A11,
+    DF-native); rejects unrestricted references for now (ROADMAP
     A15b).  Runs on the CUDA device unless a CPU device is passed, in
     lib/device's dtype unless one is given.
     """
@@ -30,8 +30,8 @@ class MPCC:
     def __init__(self, mf, run_lowlevel=True, *, device=None, dtype=None):
         if np.asarray(mf.mo_coeff).ndim == 3:
             raise NotImplementedError(
-                "MPCC on an unrestricted reference is ROADMAP A15b (after "
-                "A11), not ported yet")
+                "MPCC on an unrestricted reference is ROADMAP A15b, not "
+                "ported yet")
         self.device, self.dtype = _dev.resolve(device, dtype)
         self._scf = mf
         self.mol = mf.mol

@@ -8,8 +8,8 @@ each fragment run MP-CC with the fragment's active holes/particles,
 chaining t1/t2 between fragments.  The amplitude solves run on the
 device the caller names (CUDA unless a CPU device is passed).
 
-The unrestricted pipeline waits for the open-shell CC (ROADMAP A11,
-then A15b): its entry points raise NotImplementedError.
+The unrestricted pipeline is ROADMAP A15b: its entry points raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -103,8 +103,7 @@ def fragmented_mpcc(mol, mf, fragments, idx_s, idx_d, eri_ao=None,
 
 def _open_shell(*args, **kwargs):
     raise NotImplementedError(
-        "the unrestricted MP-CC workflow is ROADMAP A15b (after the "
-        "open-shell CC, A11), not ported yet")
+        "the unrestricted MP-CC workflow is ROADMAP A15b, not ported yet")
 
 
 localize_occ_vir_u = fragment_spaces_u = _open_shell

@@ -543,6 +543,16 @@ int probe_smem(const void* x, int n, int bytes, void* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// launch the smem kernel with `bytes` of dynamic shared memory without
+// setting the size attribute (a probe_smem call at `bytes` set it), the
+// launch alone, as a CUDA graph captures it
+int probe_smem_launch(const void* x, int n, int bytes, void* out,
+                      void* stream) {
+  smem_kernel<<<1, kSmemThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
 // blocks of the smem kernel an SM holds at `bytes` of dynamic shared memory
 int probe_smem_occupancy(int bytes, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(

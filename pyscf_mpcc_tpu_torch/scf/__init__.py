@@ -1,1 +1,1 @@
-from pyscf_mpcc_tpu_torch.scf.hf import RHF, ROHF, UHF  # noqa: F401
+from pyscf_mpcc_tpu_torch.scf.hf import RHF, ROHF, UHF, convert_to_uhf  # noqa: F401

@@ -1,13 +1,14 @@
-"""Closed-shell Hartree-Fock (RHF) with commutator DIIS.
+"""Hartree-Fock mean field: RHF, UHF, ROHF with DIIS.
 
-A copy of the RHF surface of ``pyscf_mpcc_tpu/scf/hf.py`` (SCFBase, RHF,
-the in-core and density-fitted J/K builders and the atomic guess): that
-package's ``scf/__init__`` enables the JAX compilation cache on import, so
-it cannot be imported where jax is absent.  Host NumPy in fp64, as in the
-JAX package: SCF is set-up cost, not the device hot path.  The device DF
-J/K offload is ROADMAP A18; UHF/ROHF and the energy-DIIS schemes are not
-ported yet.  ``RHF(mol).as_scanner()`` is the geometry scanner
-(SCFScanner).
+A copy of ``pyscf_mpcc_tpu/scf/hf.py`` (SCFBase, RHF, UHF, ROHF with its
+Roothaan effective Fock, ``convert_to_uhf``, the in-core and
+density-fitted J/K builders and the atomic guess): that package's
+``scf/__init__`` enables the JAX compilation cache on import, so it cannot
+be imported where jax is absent.  Host NumPy in fp64, as in the JAX
+package: SCF is set-up cost, not the device hot path.  ``diis_scheme``
+takes the energy-DIIS schemes of ``scf/diis.py`` (a host copy too).  The
+device DF J/K offload is ROADMAP A18.  ``RHF(mol).as_scanner()`` and
+``UHF(mol).as_scanner()`` are the geometry scanner (SCFScanner).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from pyscf_mpcc_tpu_torch import gto
 from pyscf_mpcc_tpu_torch.lib import logger as lg
 from pyscf_mpcc_tpu_torch.lib.diis import DIIS
 from pyscf_mpcc_tpu_torch.lib.stream import StreamObject
+from pyscf_mpcc_tpu_torch.scf.diis import make_scheme
 
 
 class _JKIncore:
@@ -128,8 +130,9 @@ class SCFBase(StreamObject):
     conv_tol_grad = None
     max_cycle = 100
     diis_space = 8
-    # only commutator DIIS is ported; the energy-DIIS schemes of the JAX
-    # package's scf/diis.py are not
+    # 'cdiis' (commutator, default), 'ediis', 'adiis', or the hybrids
+    # 'ediis+cdiis' / 'adiis+cdiis' (energy-DIIS while |FDS-SDF| > 1e-2,
+    # CDIIS after); see scf/diis.py
     diis_scheme = "cdiis"
     init_guess_scheme = "atom"
     # virtual-space level shift (Hartree) applied to the DIIS-extrapolated
@@ -261,9 +264,6 @@ class RHF(SCFBase):
         return 0.5 * np.einsum("pq,pq->", dm, h + f)
 
     def kernel(self, dm0=None):
-        if self.diis_scheme != "cdiis":
-            raise NotImplementedError(
-                f"diis_scheme={self.diis_scheme!r}: only 'cdiis' is ported")
         S = self.S
         if dm0 is None:
             dm0 = self.get_init_dm()
@@ -272,6 +272,7 @@ class RHF(SCFBase):
         else:
             fock = self.get_fock(dm0)
         diis = DIIS(space=self.diis_space)
+        ediis, hybrid = make_scheme(self.diis_scheme, self.diis_space)
         e_last = 0.0
         conv_tol_grad = self.conv_tol_grad or np.sqrt(self.conv_tol)
         for cycle in range(self.max_cycle):
@@ -282,7 +283,14 @@ class RHF(SCFBase):
             e = self.energy_elec(dm, fock) + self.e_nuc
             # DIIS on the commutator FDS - SDF (orthonormal-basis error)
             err = fock @ dm @ S - S @ dm @ fock
-            fock = diis.update(fock, xerr=err).reshape(S.shape)
+            gnorm0 = np.linalg.norm(err)
+            if ediis is not None:
+                ediis.push(e, dm, fock)
+            fock_cd = diis.update(fock, xerr=err).reshape(S.shape)
+            if ediis is not None and (not hybrid or gnorm0 > 1e-2):
+                fock = ediis.extrapolate()
+            else:
+                fock = fock_cd
             fock = self._shift_fock(fock, dm * 0.5)
             gnorm = np.linalg.norm(err)
             self.log.debug("SCF cycle %d  E = %.14f  dE = %.3e  "
@@ -301,6 +309,162 @@ class RHF(SCFBase):
         self.log.info("RHF converged=%s  E(RHF) = %.14f", self.converged,
                       self.e_tot)
         return self.e_tot
+
+
+class UHF(SCFBase):
+    def get_occ(self, mo_energy):
+        na, nb = self.mol.nelec
+        occ = np.zeros_like(mo_energy)
+        occ[0, :na] = 1.0
+        occ[1, :nb] = 1.0
+        return occ
+
+    def make_rdm1(self, mo_coeff=None, mo_occ=None):
+        c = self.mo_coeff if mo_coeff is None else mo_coeff
+        o = self.mo_occ if mo_occ is None else mo_occ
+        return np.array([(c[0] * o[0]) @ c[0].T, (c[1] * o[1]) @ c[1].T])
+
+    def get_fock(self, dm):
+        j, k = self.get_jk(dm)
+        jtot = j[0] + j[1]
+        h = self.get_hcore()
+        return np.array([h + jtot - k[0], h + jtot - k[1]])
+
+    def energy_elec(self, dm, f):
+        h = self.get_hcore()
+        return 0.5 * (np.einsum("pq,pq->", dm[0], h + f[0])
+                      + np.einsum("pq,pq->", dm[1], h + f[1]))
+
+    def kernel(self, dm0=None):
+        S = self.S
+        if dm0 is None:
+            da = self.get_init_dm()
+            if da is not None:
+                dm0 = np.array([da, da]) * 0.5
+        if dm0 is None:
+            g = self.init_guess()
+            e0, c0 = self.eig(g, S)
+            occ = self.get_occ(np.array([e0, e0]))
+            # tiny symmetry breaking for open shells
+            dm = self.make_rdm1(np.array([c0, c0]), occ)
+        else:
+            dm = np.asarray(dm0)
+        diis = DIIS(space=self.diis_space)
+        ediis, hybrid = make_scheme(self.diis_scheme, self.diis_space)
+        e_last = 0.0
+        conv_tol_grad = self.conv_tol_grad or np.sqrt(self.conv_tol)
+        for cycle in range(self.max_cycle):
+            fock = self.get_fock(dm)
+            err = np.concatenate([
+                (fock[0] @ dm[0] @ S - S @ dm[0] @ fock[0]).ravel(),
+                (fock[1] @ dm[1] @ S - S @ dm[1] @ fock[1]).ravel()])
+            if ediis is not None:
+                ediis.push(self.energy_elec(dm, fock), dm, fock)
+            fock_cd = diis.update(fock, xerr=err).reshape(2, *S.shape)
+            if ediis is not None and (not hybrid
+                                      or np.linalg.norm(err) > 1e-2):
+                fock = ediis.extrapolate()
+            else:
+                fock = fock_cd
+            fock = np.array([self._shift_fock(fock[0], dm[0]),
+                             self._shift_fock(fock[1], dm[1])])
+            ea, ca = self.eig(fock[0], S)
+            eb, cb = self.eig(fock[1], S)
+            mo_energy = np.array([ea, eb])
+            mo_coeff = np.array([ca, cb])
+            mo_occ = self.get_occ(mo_energy)
+            dm = self.make_rdm1(mo_coeff, mo_occ)
+            e = self.energy_elec(dm, self.get_fock(dm)) + self.e_nuc
+            gnorm = np.linalg.norm(err)
+            self.log.debug("UHF cycle %d  E = %.14f  dE = %.3e  |err| = %.3e",
+                           cycle, e, e - e_last, gnorm)
+            if abs(e - e_last) < self.conv_tol and gnorm < conv_tol_grad:
+                self.converged = True
+                break
+            e_last = e
+        fock = self.get_fock(dm)
+        ea, ca = self.eig(fock[0], S)
+        eb, cb = self.eig(fock[1], S)
+        self.mo_energy = np.array([ea, eb])
+        self.mo_coeff = np.array([ca, cb])
+        self.mo_occ = self.get_occ(self.mo_energy)
+        dm = self.make_rdm1()
+        self.e_tot = float(self.energy_elec(dm, self.get_fock(dm)) + self.e_nuc)
+        self.log.info("UHF converged=%s  E(UHF) = %.14f", self.converged, self.e_tot)
+        return self.e_tot
+
+
+class ROHF(UHF):
+    """Restricted open-shell HF: UHF densities, Roothaan effective Fock."""
+
+    def kernel(self, dm0=None):
+        S = self.S
+        na, nb = self.mol.nelec
+        if dm0 is None:
+            da = self.get_init_dm()
+            if da is not None:
+                dm0 = np.array([da, da]) * 0.5
+        if dm0 is None:
+            g = self.init_guess()
+            e0, c0 = self.eig(g, S)
+            occ = self.get_occ(np.array([e0, e0]))
+            dm = self.make_rdm1(np.array([c0, c0]), occ)
+        else:
+            dm = np.asarray(dm0)
+        diis = DIIS(space=self.diis_space)
+        e_last = 0.0
+        conv_tol_grad = self.conv_tol_grad or np.sqrt(self.conv_tol)
+        mo_coeff = None
+        for cycle in range(self.max_cycle):
+            fock_uhf = self.get_fock(dm)
+            dm_tot = dm[0] + dm[1]
+            feff = self._roothaan_fock(fock_uhf, dm, S)
+            err = feff @ (dm_tot * 0.5) @ S - S @ (dm_tot * 0.5) @ feff
+            feff = diis.update(feff, xerr=err).reshape(S.shape)
+            feff = self._shift_fock(feff, dm_tot * 0.5)
+            e0, c0 = self.eig(feff, S)
+            mo_coeff = np.array([c0, c0])
+            mo_occ = self.get_occ(np.array([e0, e0]))
+            dm = self.make_rdm1(mo_coeff, mo_occ)
+            e = self.energy_elec(dm, self.get_fock(dm)) + self.e_nuc
+            gnorm = np.linalg.norm(err)
+            self.log.debug("ROHF cycle %d  E = %.14f  dE = %.3e  |err| = %.3e",
+                           cycle, e, e - e_last, gnorm)
+            if abs(e - e_last) < self.conv_tol and gnorm < conv_tol_grad:
+                self.converged = True
+                break
+            e_last = e
+        fock_uhf = self.get_fock(dm)
+        feff = self._roothaan_fock(fock_uhf, dm, S)
+        e0, c0 = self.eig(feff, S)
+        self.mo_energy = np.array([e0, e0])
+        self.mo_coeff = np.array([c0, c0])
+        self.mo_occ = self.get_occ(self.mo_energy)
+        dm = self.make_rdm1()
+        self.e_tot = float(self.energy_elec(dm, self.get_fock(dm)) + self.e_nuc)
+        self.log.info("ROHF converged=%s  E(ROHF) = %.14f", self.converged, self.e_tot)
+        return self.e_tot
+
+    def _roothaan_fock(self, fock, dm, S):
+        """Roothaan single-matrix effective Fock (the reference's
+        get_roothaan_fock projector algebra)."""
+        fa, fb = fock
+        dmc = dm[1]                # closed (doubly-occ) projector density
+        dmo = dm[0] - dm[1]        # open-shell density
+        dmv_proj = np.eye(S.shape[0]) - (dmc + dmo) @ S
+        fc = 0.5 * (fa + fb)
+        pc = dmc @ S
+        po = dmo @ S
+        pv = dmv_proj
+        # NB: each diagonal block carries coefficient 1.0 in the symmetrized
+        # form (the reference writes 0.5*block then adds fock + fock.T).
+        f = (pc.T @ fc @ pc
+             + po.T @ fc @ po
+             + pv.T @ fc @ pv
+             + po.T @ fb @ pc + pc.T @ fb @ po
+             + po.T @ fa @ pv + pv.T @ fa @ po
+             + pv.T @ fc @ pc + pc.T @ fc @ pv)
+        return f
 
 
 class SCFScanner:
@@ -350,9 +514,21 @@ class SCFScanner:
         return mf.e_tot
 
 
-def UHF(mol, *args, **kwargs):
-    raise NotImplementedError("UHF is ROADMAP A11 (open shell), not ported")
-
-
-def ROHF(mol, *args, **kwargs):
-    raise NotImplementedError("ROHF is ROADMAP A11 (open shell), not ported")
+def convert_to_uhf(mf):
+    """View an RHF/ROHF solution through the UHF interface (spin-resolved
+    mo arrays), as the reference's scf.addons.convert_to_uhf does."""
+    out = UHF(mf.mol, verbose=mf.verbose)
+    out.with_df = mf.with_df
+    out._jk = mf._jk
+    if isinstance(mf, UHF):  # includes ROHF
+        out.mo_coeff = np.array(mf.mo_coeff)
+        out.mo_energy = np.array(mf.mo_energy)
+        out.mo_occ = np.array(mf.mo_occ)
+    else:
+        out.mo_coeff = np.array([mf.mo_coeff, mf.mo_coeff])
+        out.mo_energy = np.array([mf.mo_energy, mf.mo_energy])
+        out.mo_occ = np.array([(mf.mo_occ > 0).astype(float),
+                               (mf.mo_occ > 1).astype(float)])
+    out.converged = mf.converged
+    out.e_tot = mf.e_tot
+    return out

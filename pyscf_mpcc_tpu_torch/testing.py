@@ -8,7 +8,8 @@ port's own ``gto``.  ``synthetic_eris`` is the counterpart of
 Fock of sorted orbital energies with the occupied block shifted down),
 built on the target device from a seeded ``torch.Generator``.  The two
 generators give different numbers from the same seed; parity tests make
-their inputs with numpy instead.
+their inputs with numpy instead.  ``synthetic_ueris`` is the same recipe
+per spin for the unrestricted container.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from pyscf_mpcc_tpu_torch import gto
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs, _pair as pair
+from pyscf_mpcc_tpu_torch.cc.uccsd import UERIs
 from pyscf_mpcc_tpu_torch.lib import device as _dev
 
 # H2O geometries (Angstrom) of the reference's tests: 'sym' is
@@ -86,6 +88,58 @@ def synthetic_eris(nocc=4, nvir=16, naux=32, device=None, dtype=None,
         vvvv=None,
         Lvv=Lvv, Lov=Lov, Loo=Loo,
     )
+
+
+def synthetic_ueris(nocca=4, noccb=3, nvira=12, nvirb=13, naux=32,
+                    device=None, dtype=None, seed=0, materialize=False):
+    """UERIs from random per-spin DF factors (the synthetic_eris recipe
+    for each spin), on ``device`` from a torch.Generator seeded with
+    ``seed``.  The o^2 v^2-class blocks are products of the same factors,
+    so materialize=True (the three-virtual blocks as tensors instead of
+    the factors; small shapes only) gives the same equations as the DF
+    container."""
+    device, dtype = _dev.resolve(device, dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=device, dtype=dtype)
+
+    def spin(nocc, nvir):
+        Loo = uniform(naux, nocc, nocc) * 0.05
+        Lov = uniform(naux, nocc, nvir) * 0.05
+        Lvv = uniform(naux, nvir, nvir) * 0.05
+        mo_e = torch.sort(uniform(nocc + nvir)).values * 2.0
+        mo_e[:nocc] -= 1.5
+        return (0.5 * (Loo + Loo.transpose(1, 2)), Lov,
+                0.5 * (Lvv + Lvv.transpose(1, 2)), torch.diag(mo_e))
+
+    Loo_a, Lov_a, Lvv_a, fa = spin(nocca, nvira)
+    Loo_b, Lov_b, Lvv_b, fb = spin(noccb, nvirb)
+
+    def ex(a, b):      # (xy|wz) stored [x,y,z,w]
+        return pair(a, b).permute(0, 1, 3, 2).contiguous()
+
+    blocks = dict(
+        focka=fa, fockb=fb, nocca=nocca, noccb=noccb,
+        oooo=pair(Loo_a, Loo_a), ovoo=pair(Lov_a, Loo_a),
+        ovov=pair(Lov_a, Lov_a), oovv=pair(Loo_a, Lvv_a),
+        ovvo=ex(Lov_a, Lov_a),
+        OOOO=pair(Loo_b, Loo_b), OVOO=pair(Lov_b, Loo_b),
+        OVOV=pair(Lov_b, Lov_b), OOVV=pair(Loo_b, Lvv_b),
+        OVVO=ex(Lov_b, Lov_b),
+        ooOO=pair(Loo_a, Loo_b), ovOO=pair(Lov_a, Loo_b),
+        OVoo=pair(Lov_b, Loo_a), ovOV=pair(Lov_a, Lov_b),
+        ooVV=pair(Loo_a, Lvv_b), OOvv=pair(Loo_b, Lvv_a),
+        ovVO=ex(Lov_a, Lov_b), OVvo=ex(Lov_b, Lov_a))
+    if materialize:
+        blocks.update(
+            ovvv=pair(Lov_a, Lvv_a), OVVV=pair(Lov_b, Lvv_b),
+            ovVV=pair(Lov_a, Lvv_b), OVvv=pair(Lov_b, Lvv_a),
+            vvvv=pair(Lvv_a, Lvv_a), VVVV=pair(Lvv_b, Lvv_b),
+            vvVV=pair(Lvv_a, Lvv_b))
+    else:
+        blocks.update(Lov_a=Lov_a, Lvv_a=Lvv_a, Lov_b=Lov_b, Lvv_b=Lvv_b)
+    return UERIs(**blocks)
 
 
 def random_triples_problem(nocc=3, nvir=7, seed=7, naux=None):

@@ -70,6 +70,7 @@ def _lib():
     for name, args in (
             ("probe_dispatch", [p, p, i, i, p]),
             ("probe_smem", [p, i, i, p, p]),
+            ("probe_smem_launch", [p, i, i, p, p]),
             ("probe_smem_occupancy", [i, pint]),
             ("probe_smem_optin", [pint]),
             ("probe_dots_geometry", [i, pint]),
@@ -158,6 +159,18 @@ def smem_copy(x, nbytes):
     out = torch.empty(1, dtype=x.dtype, device=x.device)
     if not _smem_try(x, nbytes, out):
         raise RuntimeError(f"{nbytes} bytes of dynamic shared memory refused")
+    return out
+
+
+def smem_launch(x, nbytes, out):
+    """Launch the kernel at nbytes without setting the size attribute (a
+    smem_copy at nbytes set it): the launch alone, which a CUDA graph
+    captures.  Writes scr[0] to out (1,)."""
+    _check_cuda(x, out)
+    n = min(x.shape[1], nbytes // 4)
+    _raise(_lib().probe_smem_launch(x.data_ptr(), n, nbytes, out.data_ptr(),
+                                    _stream(x.device)), "smem launch")
+    launch_count["smem"] += 1
     return out
 
 
@@ -443,6 +456,32 @@ def cuda_ms(fn, n, dev, before=None, hide_host=True):
     return tot / n
 
 
+def graph_ms(fn, dev, nchain=NCHAIN, reps=20):
+    """Mean device milliseconds of one fn() from a CUDA graph of nchain
+    calls, replayed reps times (cuda_ms); None off the card.  fn must have
+    run once before (capture runs nothing, so an output zeroed ahead of
+    this call shows whether the replays wrote it).  The launches fn's
+    wrappers count while it is recorded are taken back, and each replay
+    counts them again."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    before = dict(launch_count)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(nchain):
+            fn()
+    per_replay = {k: launch_count[k] - before[k] for k in launch_count}
+    launch_count.update(before)
+
+    def replay():
+        g.replay()
+        for k, n in per_replay.items():
+            launch_count[k] += n
+
+    return cuda_ms(replay, reps, dev) / nchain
+
+
 def _fmt(x, nd=3):
     return "not measured" if x is None else f"{x:.{nd}f}"
 
@@ -471,13 +510,12 @@ def p1_dispatch(device=None):
         # on the stream as the port launches today: the host's cost shows
         ms = cuda_ms(chain, 5, dev, hide_host=False)
         ms = None if ms is None else ms / NCHAIN
-        ms_graph = None
-        if dev.type == "cuda":
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                yg = chain()
-            ms_graph = cuda_ms(g.replay, 20, dev) / NCHAIN
-            _expect(f"P1 graph grid={grid}", float(yg[0, 0]), 1.0)
+        bufs[(NCHAIN - 1) % 2].zero_()
+        ms_graph = graph_ms(chain, dev, nchain=1)
+        if ms_graph is not None:
+            ms_graph /= NCHAIN
+            _expect(f"P1 graph grid={grid}",
+                    float(bufs[(NCHAIN - 1) % 2][0, 0]), 1.0)
         res[str(grid)] = dict(
             value=value, expect=1.0, ms=ms, ms_graph=ms_graph,
             rate=None if ms_graph is None else 1e3 / ms_graph,
@@ -497,8 +535,8 @@ def p2_smem(device=None):
         _expect("P2", value, 1.0)
         print("P2 smem cap: not measured (the plain version has no cap)",
               flush=True)
-        return {"cap": dict(value=value, expect=1.0, ms=None, rate=None,
-                            unit=None, cap=None, optin=None,
+        return {"cap": dict(value=value, expect=1.0, ms=None, ms_graph=None,
+                            rate=None, unit=None, cap=None, optin=None,
                             blocks_per_sm=None)}
     cap, out = smem_cap(x)
     value = float(out[0])
@@ -506,11 +544,17 @@ def p2_smem(device=None):
     optin, blocks = smem_limits(cap)
     _expect("P2 cap against the optin attribute", cap, optin)
     ms = cuda_ms(lambda: smem_copy(x, cap), 20, dev)
+    # as p1's bound is timed: the attribute set once (by smem_copy above),
+    # NCHAIN launches replayed from a CUDA graph
+    out = torch.zeros(1, dtype=dtype, device=dev)
+    ms_graph = graph_ms(lambda: smem_launch(x, cap, out), dev)
+    _expect("P2 graph", float(out[0]), 1.0)
     print(f"P2 smem cap: {cap} bytes ({cap / 1024:.1f} KiB), optin "
-          f"attribute {optin}, {blocks} block(s)/SM, {_fmt(ms, 4)} ms/launch",
-          flush=True)
-    return {"cap": dict(value=value, expect=1.0, ms=ms, rate=None,
-                        unit=None, cap=cap, optin=optin,
+          f"attribute {optin}, {blocks} block(s)/SM, {_fmt(ms, 4)} ms/launch "
+          f"with the attribute set, {_fmt(ms_graph, 4)} ms/launch from a "
+          f"graph", flush=True)
+    return {"cap": dict(value=value, expect=1.0, ms=ms, ms_graph=ms_graph,
+                        rate=None, unit=None, cap=cap, optin=optin,
                         blocks_per_sm=blocks)}
 
 

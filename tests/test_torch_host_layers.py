@@ -1,11 +1,11 @@
 """The port's copies of the JAX package's host layers (gto, df, lib.diis,
-lib.chkfile, lib.logger, lib.stream, config, lo.pm, mpcc.masks) against
-the originals.
+lib.chkfile, lib.logger, lib.stream, config, lo.pm, mpcc.masks,
+scf.diis) against the originals.
 
 The port imports nothing of pyscf_mpcc_tpu, so it carries these NumPy/C++
 layers itself; they must stay the same functions.  On H2O/cc-pVDZ the
 integrals, the DF factor, a DIIS extrapolation, the Lowdin populations and
-a Pipek-Mezey localization agree to 1e-12 (the same code on the same
+a Pipek-Mezey localization, EDIIS/ADIIS extrapolations agree to 1e-12 (the same code on the same
 inputs; only the native engine's thread order may move the last bits), a
 chk file written by either chkfile loads bit for bit in the other, the
 MP-CC block masks are identical arrays, and the vendored basis library is
@@ -25,11 +25,13 @@ from pyscf_mpcc_tpu.lib import chkfile as jchkfile
 from pyscf_mpcc_tpu.lib import diis as jdiis
 from pyscf_mpcc_tpu.lo import pm as jpm
 from pyscf_mpcc_tpu.mpcc import masks as jmasks
+from pyscf_mpcc_tpu.scf import diis as jscf_diis
 from pyscf_mpcc_tpu_torch import config, df, gto
 from pyscf_mpcc_tpu_torch.gto import native
 from pyscf_mpcc_tpu_torch.lib import chkfile, diis, logger, stream
 from pyscf_mpcc_tpu_torch.lo import pm
 from pyscf_mpcc_tpu_torch.mpcc import masks
+from pyscf_mpcc_tpu_torch.scf import diis as scf_diis
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOM = [[8, (0., 0., 0.)], [1, (0., -0.757, 0.587)],
@@ -193,3 +195,24 @@ def test_mpcc_masks_identical(space):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype == np.bool_
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("scheme", ["cdiis", "ediis", "adiis", "ediis+cdiis",
+                                    "adiis+cdiis"])
+def test_scf_energy_diis_matches(scheme):
+    """scf.diis.make_scheme and the EDIIS/ADIIS extrapolations on a seeded
+    history of spin-stacked densities and Focks."""
+    obj, hybrid = scf_diis.make_scheme(scheme, space=4)
+    jobj, jhybrid = jscf_diis.make_scheme(scheme, space=4)
+    assert hybrid == jhybrid and type(obj).__name__ == type(jobj).__name__
+    if obj is None:
+        return
+    rng = np.random.default_rng(5)
+    for n in range(6):
+        dm = rng.standard_normal((2, 6, 6))
+        f = rng.standard_normal((2, 6, 6))
+        e = -1.0 - 0.1 * n + 0.01 * rng.standard_normal()
+        for o in (obj, jobj):
+            o.push(e, dm + dm.transpose(0, 2, 1), f + f.transpose(0, 2, 1))
+        np.testing.assert_allclose(obj.extrapolate(), jobj.extrapolate(),
+                                   rtol=0, atol=TOL)

@@ -164,8 +164,7 @@ def test_iterative_kernel_rejects_unknown_ring(tin):
                              diis_backend="gpu")
 
 
-@pytest.mark.parametrize("name", ["ump2", "dfump2", "gmp2", "dfgmp2",
-                                  "mp2f12", "GMP2"])
+@pytest.mark.parametrize("name", ["gmp2", "dfgmp2", "mp2f12", "GMP2"])
 def test_open_shell_mp2_not_ported(name):
     with pytest.raises(NotImplementedError, match="A10b"):
         getattr(mp, name)

@@ -1,6 +1,7 @@
 """The port's RHF (a copy of the JAX package's host RHF) against the JAX
 package's RHF on H2O/cc-pVDZ, incore and density-fitted.  Both are host
-NumPy fp64, so E_tot agrees to 1e-10."""
+NumPy fp64, so E_tot agrees to 1e-10.  UHF, ROHF and the energy-DIIS
+schemes are held to the JAX package in tests/test_torch_uhf.py."""
 
 import numpy as np
 import pytest
@@ -29,14 +30,3 @@ def test_rhf_matches_jax_rhf(df):
     np.testing.assert_allclose(tmf.mo_energy, jmf.mo_energy, atol=1e-8)
     if not df:
         assert abs(tmf.e_tot - E_RHF_H2O_CCPVDZ) < 1e-9
-
-
-def test_unported_scf_surface_raises():
-    mol = testing.mol_of("sym", basis="sto-3g")
-    for cls in (tscf.UHF, tscf.ROHF):
-        with pytest.raises(NotImplementedError):
-            cls(mol)
-    mf = tscf.RHF(mol)
-    mf.diis_scheme = "ediis+cdiis"
-    with pytest.raises(NotImplementedError):
-        mf.kernel()

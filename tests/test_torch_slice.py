@@ -37,8 +37,11 @@ PKG = os.path.join(ROOT, "pyscf_mpcc_tpu_torch")
 # modules of the JAX package the port may import: none (its host layers
 # are copies inside the port)
 ALLOWED = ()
-# the modules of the Lambda slice: both import checks must reach them
-LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile")
+# the modules of the Lambda and open-shell slices: both import checks
+# must reach them
+LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
+                "cc.spinsum", "cc.uccsd", "cc.uccsd_t", "mp.ump2",
+                "mp.dfump2", "scf.diis")
 
 
 def test_df_slice_matches_jax_driver(monkeypatch):
@@ -123,6 +126,13 @@ mol = pkg.M(atom="O 0 0 0; H 0 0.757 0.587; H 0 -0.757 0.587",
             basis="cc-pvdz")
 from pyscf_mpcc_tpu_torch.scf import RHF
 assert RHF(mol).density_fit().run().converged
+from pyscf_mpcc_tpu_torch.cc import uccsd_t
+from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+from pyscf_mpcc_tpu_torch.scf import UHF
+umf = UHF(pkg.M(atom="O 0 0 0; O 0 0 1.21", basis="sto-3g", spin=2)).run()
+ucc = CCSD(umf, device="cpu").run()
+ul = lambda_ad.kernel_u(ucc.t1, ucc.t2, ucc.eris, diis_backend="device")
+assert ucc.converged and ul[0] and ucc.ccsd_t(tile=2) < 0
 assert "jax" not in sys.modules
 assert not any(m == "pyscf_mpcc_tpu" or m.startswith("pyscf_mpcc_tpu.")
                for m in sys.modules), sorted(sys.modules)
