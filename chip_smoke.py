@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100 and nvcc:
 It builds the hand-written CUDA kernels from ops/csrc (one nvcc process
 each, started together), then runs:
 
-  0. environment: versions, card, TF32 flags (asserted off), kernel builds
+  0. environment: versions, card, TF32 flags (asserted off), whether
+     torch.einsum may reorder contractions (opt_einsum), kernel builds
      and their register reports;
   1. the (T) epilogue kernel (triples_combine) against its plain PyTorch
      version on the card: random small problems in fp64 (staged and
@@ -95,7 +96,23 @@ each, started together), then runs:
      fp32: sweep time and peak, fp32 against fp64, seinsum's host share
      of a sweep (torch.profiler), CCSD cycles on each ring, Lambda
      cycles, one fp64 Lagrangian, a 64-tile UCCSD(T) probe and
-     ump2.df_kernel.
+     ump2.df_kernel;
+ 10. the open-shell MP-CC layer (no hand kernel on it either; umpcc_phase):
+     (a) O2 triplet/sto-3g and H2O/6-31g UHF in fp64 on the card against
+     pins made by the JAX package: the UMPCC limits (all frozen = UMP2,
+     nothing frozen = UCCSD), the MPCCSD(4,2) freeze, one OO-MP2 bath
+     relaxation per variant, the masked Lambda, kernel_pert_df (ccsdt-3)
+     and ccsdt_env.kernel (ccsdt-1, ccsdt-3); the same solves in fp32
+     within 1e-6 Ha with fp32 results and the frozen blocks bit for bit
+     the bath's; (b) OH(H2O)3/cc-pVDZ in fp32: kernel_pert_df at 10+10
+     active on phase 9(b)'s DF-UHF and the fragmented chain with its
+     no-freeze control on an exact UHF, against the JAX package's TPU
+     records (1e-5 Ha; the T3 coupling 2e-6, the control against UCCSD
+     2e-6), the host parts timed apart; (c) the OH(H2O)3/cc-pVTZ shape in
+     fp32: masked UMPCC cycles on each ring, an OO-MP2 sweep per
+     variant, a kernel_pert_df cycle at 10+10 active split into its parts
+     with seinsum's host share, and one environment T3 sweep at 2+2
+     active on ENV_SHAPE, each with its peak memory.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, its error against the
@@ -208,6 +225,87 @@ ATOL_OS_CERT, ATOL_OS_CAMPAIGN = 1e-7, 1e-6
 # 50 tile rows of edge 8, 22,100 (T) tiles
 OS_SHAPE = (20, 19, 198, 199, 526)
 OS_NTRIPS = 50 * 51 * 52 // 6
+# open-shell MP-CC pins in fp64: O2 triplet/sto-3g and H2O/6-31g UHF (SCF
+# conv_tol 1e-12 / conv_tol_grad 1e-9), solves to 1e-11 / 1e-9, on the
+# active spaces below: the UMPCC limits (all frozen = the UMP2 guess,
+# nothing frozen = OS_PIN_CASES' UCCSD), the MPCCSD(4,2) freeze, one OO-MP2
+# relaxation per variant from it (the fragment's all-active blocks
+# frozen), the norm of the masked Lambda (conv_tol 1e-10), kernel_pert_df
+# (ccsdt-3, exact-Cholesky factors) and the environment T3 energy at its
+# amplitudes (conv_tol 1e-8).  Computed once by the JAX package on the CPU
+# (its ccsdt_act calls through jax.jit, the same functions, as
+# tests/test_torch_ccsdt.py does):
+#   python - <<'PY'
+#   import sys; sys.path[:0] = [".", "tests"]
+#   import jax; jax.config.update("jax_platforms", "cpu")
+#   jax.config.update("jax_enable_x64", True)
+#   import numpy as np, pytest
+#   from pyscf_mpcc_tpu import gto, scf
+#   from pyscf_mpcc_tpu.cc import uccsd, ccsdt_env
+#   from pyscf_mpcc_tpu.mpcc import umpccsd
+#   from test_torch_ccsdt import _jitted
+#   def uhf(atom, basis, spin):
+#       mf = scf.UHF(gto.M(atom=atom, basis=basis, spin=spin))
+#       mf.conv_tol, mf.conv_tol_grad = 1e-12, 1e-9
+#       mf.kernel()
+#       return mf
+#   tight = dict(conv_tol=1e-11, conv_tol_normt=1e-9, max_cycle=100)
+#   er = uccsd.eris_from_scf(uhf(O2_ATOM, "sto-3g", 2))
+#   print(umpccsd.kernel(er, ([0], [0]), ([0], [0]), list(range(4)),
+#                        list(range(16)), **tight)[1])
+#   _, e, t1, t2 = umpccsd.kernel(er, *O2_SPACE, [], list(range(15)),
+#                                 **tight)
+#   for v in ("standard", "t2_fock", "t2_all", "t2act"):
+#       print(v, umpccsd.kernel(er, *O2_SPACE, [3], [15], t1=t1, t2=t2,
+#                               oo_mp2=True, oomp2_variant=v, **tight)[1])
+#   _, l1, l2 = umpccsd.lambda_kernel(er, t1, t2, *O2_SPACE, [],
+#                                     list(range(15)), conv_tol=1e-10,
+#                                     max_cycle=100)
+#   print(np.sqrt(sum(np.sum(np.asarray(x) ** 2) for x in (*l1, *l2))))
+#   mf = uhf(H2O_ATOM, "6-31g", 0)
+#   eri = gto.intor_eri(mf.mol); n = eri.shape[0]
+#   w, v = np.linalg.eigh(eri.reshape(n * n, n * n))
+#   b = (v[:, w > 1e-12] * np.sqrt(w[w > 1e-12])).T.reshape(-1, n, n)
+#   B = tuple(np.einsum("Lmn,mp,nq->Lpq", b, c, c) for c in mf.mo_coeff)
+#   h = tuple(c.T @ mf.get_hcore() @ c for c in mf.mo_coeff)
+#   with pytest.MonkeyPatch.context() as m:
+#       _jitted(m)
+#       _, e, t1, t2, _ = umpccsd.kernel_pert_df(
+#           uccsd.eris_from_scf(mf), B, h, *H2O_SPACE, [], list(range(15)),
+#           model="ccsdt-3", **tight)
+#       print(e)
+#       for model in ("ccsdt-1", "ccsdt-3"):
+#           print(model, ccsdt_env.kernel(B, h, t1, t2, mf.mol.nelec,
+#                                         *H2O_SPACE, tuple(mf.mo_energy),
+#                                         model=model)[0])
+#   PY
+O2_SPACE = (([7, 8], [5, 6]), ([0], [0, 1]))
+H2O_SPACE = (([2, 3, 4], [2, 3, 4]), ([0, 1, 3], [0, 1, 3]))
+UMPCC_PINS = {
+    "ump2": -0.09706445395696758, "partial": -0.10573775034080224,
+    "standard": -0.10575318208216082, "t2_fock": -0.10067633177975123,
+    "t2_all": -0.08673177501929179, "t2act": -0.09503179586041055,
+    "lambda_norm": 0.2813147174900613, "pert_df": -0.12953522471971546,
+    "env_ccsdt-1": -0.0007871523250640659,
+    "env_ccsdt-3": -0.000911681445975489}
+# OH(H2O)3/cc-pVDZ records of the JAX package's TPU v5e runs in fp32 at
+# conv_tol 1e-6: UMPCC coupled to the active T3, 10+10 active a spin
+# (docs/PARITY.md:397-399, examples/umpcc_t3_chip.py), and the fragmented
+# chain (docs/PARITY.md:431-437, examples/mpcc_fragmented_chip.py).  Each
+# port energy within ATOL_REC of its record, the coupling within
+# ATOL_COUPLING, the no-freeze control within ATOL_CONTROL of the port's
+# own UCCSD on the same integrals (the record's gap: 9.5e-7)
+REC_OH3 = {"uccsd": -0.8142849207, "uccsd_t3": -0.8143755198,
+           "coupling": -0.8143755198 + 0.8142849207,
+           "frag_mp2": -0.7737513781, "frag_radical": -0.7857607007,
+           "frag_chain": -0.8114969134, "frag_control": -0.8138623238,
+           "frag_uccsd": -0.8138632774}
+ATOL_REC, ATOL_COUPLING, ATOL_CONTROL = 1e-5, 2e-6, 2e-6
+OH3_N_ACT = 10
+# the environment T3 sweep of phase 10(c): OS_SHAPE with the virtual
+# ranges cut to 24/25 (its t3 is o^3 v^3 a block, 6.2e10 elements in
+# fp32 at nvir 198, 1.1e8 here)
+ENV_SHAPE = (20, 19, 24, 25, 526)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
@@ -868,6 +966,333 @@ def open_shell_phase(torch, smi, dev):
         peak_gib=f"{peak_t / 2**30:.2f}", e_probe=repr(e_tp),
         ump2_df_kernel_ms=f"{ms_mp2:.3f}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    return mf
+
+
+def umpcc_phase(torch, smi, dev, mf_df):
+    """Phase 10: the open-shell MP-CC layer on the card (no hand kernel on
+    it).  (a) O2/sto-3g and H2O/6-31g pins in fp64 and the same solves in
+    fp32; (b) OH(H2O)3/cc-pVDZ: UMPCC coupled to the active T3 on phase
+    9(b)'s DF-UHF and the fragmented chain on an exact UHF, in fp32,
+    against the JAX package's TPU records; (c) the OH(H2O)3/cc-pVTZ shape
+    on synthetic integrals in fp32.  mf_df: phase 9(b)'s DF-UHF."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pyscf_mpcc_tpu_torch import gto, testing
+    from pyscf_mpcc_tpu_torch import scf as pscf
+    from pyscf_mpcc_tpu_torch.cc import ccsdt_act, ccsdt_env, uccsd
+    from pyscf_mpcc_tpu_torch.cc.spinsum import t2_st
+    from pyscf_mpcc_tpu_torch.examples import umpcc_oh
+    from pyscf_mpcc_tpu_torch.mp import ump2
+    from pyscf_mpcc_tpu_torch.mpcc import masks as mpcc_masks
+    from pyscf_mpcc_tpu_torch.mpcc import oomp2, umpccsd, workflow
+
+    f64, f32 = torch.float64, torch.float32
+    tol = {f64: dict(conv_tol=1e-11, conv_tol_normt=1e-9, max_cycle=100),
+           f32: TOL_FP32}
+    freeze = dict(idx_s=[], idx_d=list(range(15)))
+    pins = UMPCC_PINS
+
+    def uhf(atom, basis, spin):
+        mf = pscf.UHF(gto.M(atom=atom, basis=basis, spin=spin))
+        mf.conv_tol, mf.conv_tol_grad = 1e-12, 1e-9
+        return mf.run()
+
+    def bitwise(xs, baths, ms):
+        return all(bool(m.any()) and torch.equal(x[m], b[m])
+                   for x, b, m in zip(xs, baths, ms))
+
+    def fmasks(space, t1, idx_s, idx_d):
+        return umpccsd.frozen_masks_u(
+            *space, tuple(x.shape[0] for x in t1),
+            tuple(x.shape[1] for x in t1),
+            *umpccsd._index_lists(idx_s, idx_d), device=dev)
+
+    # (a) the pins in fp64 and the same solves in fp32
+    t0 = time.perf_counter()
+    o2 = uhf(O2_ATOM, "sto-3g", 2)
+    h2o = uhf(H2O_ATOM, "6-31g", 0)
+    eri = gto.intor_eri(h2o.mol)
+    nao = eri.shape[0]
+    w, v = np.linalg.eigh(eri.reshape(nao * nao, nao * nao))
+    b_ao = (v[:, w > 1e-12] * np.sqrt(w[w > 1e-12])).T.reshape(-1, nao, nao)
+    B_h2o = tuple(np.einsum("Lmn,mp,nq->Lpq", b_ao, c, c, optimize=True)
+                  for c in h2o.mo_coeff)
+    h_h2o = tuple(c.T @ h2o.get_hcore() @ c for c in h2o.mo_coeff)
+    for dt in (f64, f32):
+        got = {}
+        er = uccsd.eris_from_scf(o2, dt, device=dev)
+        _, t1_0, bath = uccsd.init_amps(er)
+        got["ump2"] = umpccsd.kernel(er, ([0], [0]), ([0], [0]),
+                                     list(range(4)), list(range(16)),
+                                     **tol[dt])
+        got["uccsd"] = umpccsd.kernel(er, ([0], [0]), ([0], [0]), [], [],
+                                      **tol[dt])
+        got["partial"] = umpccsd.kernel(er, *O2_SPACE, **freeze, **tol[dt])
+        conv, _, t1, t2 = got["partial"]
+        ok = bitwise(t2, bath, fmasks(O2_SPACE, t1, **freeze)[2:])
+        relax_m = fmasks(O2_SPACE, t1, [3], [15])
+        for var in oomp2.VARIANTS:
+            got[var] = umpccsd.kernel(er, *O2_SPACE, [3], [15], t1=t1, t2=t2,
+                                      oo_mp2=True, oomp2_variant=var,
+                                      **tol[dt])
+            ok = ok and bitwise((*got[var][2], *got[var][3]), (*t1, *t2),
+                                relax_m)
+        lconv, l1, l2 = umpccsd.lambda_kernel(
+            er, t1, t2, *O2_SPACE, **freeze, max_cycle=100,
+            conv_tol=1e-10 if dt == f64 else 3e-6)
+        lnorm = float(sum((x.double() ** 2).sum() for x in (*l1, *l2))) ** 0.5
+        er = uccsd.eris_from_scf(h2o, dt, device=dev)
+        _, _, bath = uccsd.init_amps(er)
+        got["pert_df"] = umpccsd.kernel_pert_df(
+            er, B_h2o, h_h2o, *H2O_SPACE, **freeze, model="ccsdt-3",
+            **tol[dt])
+        _, _, t1, t2, t3 = got["pert_df"]
+        ok = ok and bitwise(t2, bath, fmasks(H2O_SPACE, t1, **freeze)[2:])
+        env = {m: ccsdt_env.kernel(B_h2o, h_h2o, t1, t2, h2o.mol.nelec,
+                                   *H2O_SPACE, tuple(h2o.mo_energy),
+                                   model=m, device=dev, dtype=dt,
+                                   conv_tol=1e-8 if dt == f64 else 1e-6)
+               for m in ("ccsdt-1", "ccsdt-3")}
+        d = {k: got[k][1] - (pins[k] if k != "uccsd" else
+                             OS_PIN_CASES[0][4][1])
+             for k in got}
+        d.update({"env_" + m: env[m][0] - pins["env_" + m] for m in env})
+        d_l = lnorm - pins["lambda_norm"]
+        atol = 1e-9 if dt == f64 else ATOL_MAIN_FP32
+        dtype_ok = (t3["aabaab"].dtype == dt and t2[1].dtype == dt
+                    and env["ccsdt-3"][1]["aabaab"].dtype == dt
+                    and got[oomp2.VARIANTS[-1]][3][1].dtype == dt)
+        if not (ok and dtype_ok and lconv and all(g[0] for g in got.values())
+                and all(x[2] for x in env.values())
+                and all(abs(x) < atol for x in d.values())
+                and abs(d_l) < (1e-8 if dt == f64 else 1e-5)):
+            raise RuntimeError(
+                f"open-shell MP-CC pins {dt}: differences {d}, Lambda norm "
+                f"{d_l}, frozen blocks bit for bit {ok}, dtypes {dtype_ok}, "
+                f"converged {[k for k, g in got.items() if not g[0]]} not, "
+                f"Lambda {lconv}, env {[x[2] for x in env.values()]}")
+        say(10, f"pins {str(dt)[6:]} ok", atol=atol,
+            max_abs_d=f"{max(abs(x) for x in d.values()):.1e}",
+            d=json.dumps({k: f"{x:.1e}" for k, x in d.items()}),
+            d_lambda_norm=f"{d_l:.1e}", frozen_bitwise=ok)
+    say(10, "pins done", seconds=f"{time.perf_counter() - t0:.1f}")
+    del er, bath, t1, t2, t3, l1, l2
+
+    # (b) OH(H2O)3/cc-pVDZ in fp32 against the JAX package's TPU records
+    t0 = time.perf_counter()
+    et, sec_t = umpcc_oh.t3_coupling(mf_df, OH3_N_ACT, device=dev,
+                                     dtype=f32)
+    d_t = tuple(et[k] - REC_OH3[k] for k in ("uccsd", "uccsd_t3",
+                                             "coupling"))
+    if not (abs(d_t[0]) < ATOL_REC and abs(d_t[1]) < ATOL_REC
+            and abs(d_t[2]) < ATOL_COUPLING):
+        raise RuntimeError(f"OH(H2O)3 UMPCC+T3 against the record: {d_t} "
+                           f"({et})")
+    say(10, "OH(H2O)3/cc-pVDZ umpcc+t3 fp32 ok",
+        n_act=f"{OH3_N_ACT}+{OH3_N_ACT}",
+        e_uccsd=repr(et["uccsd"]), e_uccsd_t3=repr(et["uccsd_t3"]),
+        coupling=f"{et['coupling']:.4e}", d_uccsd=f"{d_t[0]:.2e}",
+        d_uccsd_t3=f"{d_t[1]:.2e}", d_coupling=f"{d_t[2]:.2e}",
+        sec=json.dumps({k: round(x, 2) for k, x in sec_t.items()}))
+    # the chain on an exact UHF, timed inside the calls: the host parts
+    # (PM localization, the ERI transforms, the mask builds) and the
+    # solves (the UMP2 baths, the UMPCC kernels and the UCCSD sweeps in
+    # them; the global references of umpcc_oh.chain included)
+    wrapped = ((workflow, "localize_occ_vir_u", "pm"),
+               (uccsd, "make_eris_incore", "eris"),
+               (umpccsd, "frozen_masks_u", "masks"),
+               (ump2, "iterative_kernel", "bath"),
+               (umpccsd, "kernel", "umpcc"),
+               (uccsd, "update_amps", "sweeps"))
+    orig = {k: getattr(mod, name) for mod, name, k in wrapped}
+    host = {k: 0.0 for k in orig}
+    calls = {k: 0 for k in orig}
+
+    def timed(key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[key](*args, **kwargs)
+            torch.cuda.synchronize()
+            host[key] += time.perf_counter() - t
+            calls[key] += 1
+            return out
+        return call
+
+    t1_ = time.perf_counter()
+    mf = umpcc_oh.exact_uhf()
+    eri = gto.intor_eri(mf.mol)
+    s_uhf = time.perf_counter() - t1_
+    try:
+        for mod, name, k in wrapped:
+            setattr(mod, name, timed(k))
+        ec, sec_c = umpcc_oh.chain(mf, ("chain", "control"), eri,
+                                   device=dev, dtype=f32)
+    finally:
+        for mod, name, k in wrapped:
+            setattr(mod, name, orig[k])
+    d_c = {k: ec[k] - REC_OH3["frag_" + k]
+           for k in ("mp2", "chain", "control", "uccsd")}
+    d_ctl = ec["control"] - ec["uccsd"]
+    if not (all(abs(x) < ATOL_REC for x in d_c.values())
+            and abs(d_ctl) < ATOL_CONTROL):
+        raise RuntimeError(f"OH(H2O)3 fragmented chain against the record: "
+                           f"{d_c}, control - UCCSD {d_ctl} ({ec})")
+    gap = ec["uccsd"] - ec["mp2"]
+    say(10, "OH(H2O)3/cc-pVDZ fragmented chain fp32 ok",
+        e_uhf=repr(mf.e_tot),
+        e=json.dumps({k: repr(x) for k, x in ec.items()}),
+        fraction_chain=f"{(ec['chain'] - ec['mp2']) / gap:.4f}",
+        d_record=json.dumps({k: f"{x:.2e}" for k, x in d_c.items()}),
+        control_minus_uccsd=f"{d_ctl:.2e}", sec_uhf_host=f"{s_uhf:.1f}",
+        sec=json.dumps({k: round(x, 2) for k, x in sec_c.items()}),
+        timed_sec=json.dumps({k: round(x, 2) for k, x in host.items()}),
+        timed_calls=json.dumps(calls),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del mf, eri
+
+    # (c) the OH(H2O)3/cc-pVTZ shape in fp32 on synthetic integrals,
+    # cycles damped by a level shift as in phase 9(c)
+    na, nb, va, vb, naux = OS_SHAPE
+    shift = 1e9
+    er = testing.synthetic_ueris(na, nb, va, vb, naux, device=dev,
+                                 dtype=f32, seed=0)
+    _, t1, t2 = uccsd.init_amps(er)
+    q = (([*range(na - na // 4, na)], [*range(nb - nb // 4, nb)]),
+         ([*range(va // 4)], [*range(vb // 4)]))
+    _, s_mask = seconds(torch, lambda: umpccsd.frozen_masks_u(
+        *q, (na, nb), (va, vb), *umpccsd._index_lists(**freeze), device=dev))
+    cyc = {}
+    for ring in ("host", "device"):
+        torch.cuda.reset_peak_memory_stats()
+        (_, e, c1, c2), s2 = seconds(torch, lambda: umpccsd.kernel(
+            er, *q, **freeze, t1=t1, t2=t2, max_cycle=2, conv_tol=0.0,
+            level_shift=shift, diis_backend=ring))
+        if not all(torch.isfinite(x).all() for x in (*c1, *c2)):
+            raise RuntimeError(f"masked UMPCC {ring} ring not finite")
+        cyc[ring] = ((s2 - s_mask) / 2, torch.cuda.max_memory_allocated())
+        del c1, c2
+    act_m = tuple(torch.as_tensor(m[15], device=dev) for m in (
+        mpcc_masks.doubles_blocks(q[0][0], q[1][0], na, va),
+        mpcc_masks.doubles_blocks(q[0][0], q[1][0], na, va, q[0][1], q[1][1],
+                                  nb, vb),
+        mpcc_masks.doubles_blocks(q[0][1], q[1][1], nb, vb)))
+    oo = {}
+    for var in oomp2.VARIANTS:
+        oomp2.update_amps_oomp2(t1, t2, er, variant=var, act_masks=act_m)
+        torch.cuda.reset_peak_memory_stats()
+        (u1, u2), s = seconds(torch, lambda: oomp2.update_amps_oomp2(
+            t1, t2, er, variant=var, act_masks=act_m))
+        if not all(torch.isfinite(x).all() for x in (*u1, *u2)):
+            raise RuntimeError(f"OO-MP2 {var} sweep not finite")
+        oo[var] = (s, torch.cuda.max_memory_allocated())
+        del u1, u2
+    say(10, "OH(H2O)3/cc-pVTZ-shape masked umpcc and oo-mp2 fp32",
+        shape=json.dumps(OS_SHAPE), active="quarter", level_shift=shift,
+        sec_mask_build=f"{s_mask:.3f}",
+        sec_cycle_host=f"{cyc['host'][0]:.3f}",
+        sec_cycle_device=f"{cyc['device'][0]:.3f}",
+        peak_gib_host=f"{cyc['host'][1] / 2**30:.2f}",
+        peak_gib_device=f"{cyc['device'][1] / 2**30:.2f}",
+        oomp2_sec=json.dumps({k: round(x[0], 4) for k, x in oo.items()}),
+        oomp2_peak_gib=json.dumps({k: round(x[1] / 2**30, 2)
+                                   for k, x in oo.items()}),
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    # one kernel_pert_df cycle at OH3_N_ACT active, split into its parts
+    B, h = testing.synthetic_ufactors(na, nb, va, vb, naux, device=dev,
+                                      dtype=f32, seed=0)
+    n = OH3_N_ACT
+    a10 = (([*range(na - n, na)], [*range(nb - n, nb)]),
+           ([*range(n)], [*range(n)]))
+    dd = ccsdt_act.DressedDF((na, nb), (na + va, nb + vb), *a10, device=dev)
+    d3 = ccsdt_act.d3_blocks(dd, er.mo_energy)
+    arrs = ccsdt_act.dress_df(B, h, t1, (na, nb))
+    T2 = t2_st(t2)
+    drive = ccsdt_act.reduce_t3(ccsdt_act.t3_residual_act(
+        T2, None, dd, arrs, model="ccsdt-3"))
+    canon = {k: v / d3[k] for k, v in drive.items()}
+    parts = {
+        "dress_df": lambda: ccsdt_act.dress_df(B, h, t1, (na, nb)),
+        "t3_residual": lambda: ccsdt_act.reduce_t3(
+            ccsdt_act.t3_residual_act(T2, ccsdt_act.expand_t3(canon), dd,
+                                      arrs, model="ccsdt-3")),
+        "feedback": lambda: ccsdt_act.feedback_act(
+            ccsdt_act.expand_t3(canon), dd, arrs),
+        "uccsd_update": lambda: uccsd.update_amps(t1, t2, er, shift)}
+    sec_p = {}
+    for k, fn in parts.items():
+        fn()
+        sec_p[k] = statistics.median(seconds(torch, fn)[1] for _ in range(3))
+    # seinsum's host share of the four parts (its own CPU time outside the
+    # aten ops it launches, torch.profiler), as phase 9(c) for the sweep
+    se_orig = ccsdt_act.seinsum
+    hostw = [0.0]
+
+    def traced(*args):
+        t = time.perf_counter()
+        with record_function("seinsum"):
+            out = se_orig(*args)
+        hostw[0] += time.perf_counter() - t
+        return out
+
+    ccsdt_act.seinsum = uccsd.seinsum = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            for fn in parts.values():
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+    finally:
+        ccsdt_act.seinsum = uccsd.seinsum = se_orig
+    se = max((e for e in prof.key_averages() if e.key == "seinsum"),
+             key=lambda e: e.self_cpu_time_total)
+    del prof
+    torch.cuda.reset_peak_memory_stats()
+    (_, e, c1, c2, c3), s_pd = seconds(torch, lambda: umpccsd.kernel_pert_df(
+        er, B, h, *a10, [], [], model="ccsdt-3", t1=t1, t2=t2, max_cycle=2,
+        conv_tol=0.0, level_shift=shift))
+    peak_pd = torch.cuda.max_memory_allocated()
+    if not (all(torch.isfinite(x).all() for x in (*c1, *c2, *c3.values()))
+            and c3["aaaaaa"].dtype == f32):
+        raise RuntimeError("kernel_pert_df cycle not finite")
+    del c1, c2, c3, arrs, drive, canon, B, h, dd, d3
+    say(10, "OH(H2O)3/cc-pVTZ-shape kernel_pert_df fp32", n_act=f"{n}+{n}",
+        sec_two_cycles=f"{s_pd:.3f}",
+        sec_parts=json.dumps({k: round(x, 4) for k, x in sec_p.items()}),
+        peak_gib=f"{peak_pd / 2**30:.2f}", seinsum_calls=se.count,
+        seinsum_self_cpu_s=f"{se.self_cpu_time_total / 1e6:.4f}",
+        seinsum_host_wall_s=f"{hostw[0]:.4f}",
+        profiled_parts_wall_s=f"{wall:.4f}",
+        seinsum_host_share=f"{se.self_cpu_time_total / 1e6 / wall:.3f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    del er, t1, t2
+
+    # one solve_t3_env sweep at 2+2 active (the virtual ranges cut: the
+    # environment t3 is o^3 v^3 a block, 6.2e10 elements at the full shape)
+    na, nb, va, vb, naux = ENV_SHAPE
+    er = testing.synthetic_ueris(*ENV_SHAPE, device=dev, dtype=f32, seed=0)
+    B, h = testing.synthetic_ufactors(*ENV_SHAPE, device=dev, dtype=f32,
+                                      seed=0)
+    _, t1, t2 = uccsd.init_amps(er)
+    a2 = (([na - 2, na - 1], [nb - 2, nb - 1]), ([0, 1], [0, 1]))
+    arrs = ccsdt_act.dress_df(B, h, t1, (na, nb))
+    torch.cuda.reset_peak_memory_stats()
+    (t3e, _), s_env = seconds(torch, lambda: ccsdt_env.solve_t3_env(
+        t2, (na, nb), (na + va, nb + vb), *a2, arrs, er.mo_energy,
+        model="ccsdt-3", max_cycle=1, conv_tol=0.0, diis_space=0))
+    peak_env = torch.cuda.max_memory_allocated()
+    if not all(torch.isfinite(x).all() for x in t3e.values()):
+        raise RuntimeError("environment t3 sweep not finite")
+    say(10, "env t3 sweep fp32", shape=json.dumps(ENV_SHAPE), n_act="2+2",
+        t3_elements=sum(x.numel() for x in t3e.values()),
+        sec_drive_and_sweep=f"{s_env:.3f}", peak_gib=f"{peak_env / 2**30:.2f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
 
 
 def main():
@@ -909,6 +1334,7 @@ def main():
     say(0, "env", torch=torch.__version__, cuda=torch.version.cuda,
         card=json.dumps(smi), gpus=torch.cuda.device_count(),
         native_integrals=native.available(),
+        opt_einsum=torch.backends.opt_einsum.is_available(),
         kernel_build_s=f"{build_s:.2f}")
     for name in kernels:
         for ln in _build.build_info[name]["log"].splitlines():
@@ -1784,8 +2210,15 @@ def main():
     del beris, bt1, bt2
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    open_shell_phase(torch, smi, dev)
+    mf_oh = open_shell_phase(torch, smi, dev)
     say(9, "done", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 10: the open-shell MP-CC layer ----------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    umpcc_phase(torch, smi, dev, mf_oh)
+    del mf_oh
+    say(10, "done", seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

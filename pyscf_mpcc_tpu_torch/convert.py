@@ -75,6 +75,18 @@ def tensors_from_numpy(*arrays, device, dtype=None):
         for x in arrays)
 
 
+def t3_from_numpy(canon, device, dtype=None):
+    """The canonical t3 block dict of the JAX package's cc.ccsdt_act /
+    cc.ccsdt_env (``{signature: np.ndarray}``) as tensors.  Signatures
+    outside ccsdt_act.T3_CANONICAL raise."""
+    from pyscf_mpcc_tpu_torch.cc.ccsdt_act import T3_CANONICAL
+    device, dtype = _dev.resolve(device, dtype)
+    unknown = set(canon) - set(T3_CANONICAL)
+    if unknown:
+        raise ValueError(f"unknown t3 signatures {sorted(unknown)}")
+    return {k: _tensor(v, device, dtype) for k, v in canon.items()}
+
+
 def to_numpy(x):
     """numpy copy of a tensor on any device (``np.asarray`` is not safe on
     a CUDA tensor)."""

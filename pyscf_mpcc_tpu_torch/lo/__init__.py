@@ -1,5 +1,6 @@
-"""Orbital localization (host NumPy): a copy of the JAX package's
-``lo.pm``.  ``lo.avas`` is ROADMAP A15b, not ported yet."""
+"""Orbital localization and active-space selection (host NumPy): copies
+of the JAX package's ``lo.pm`` and ``lo.avas``."""
 
+from pyscf_mpcc_tpu_torch.lo.avas import avas  # noqa: F401
 from pyscf_mpcc_tpu_torch.lo.pm import (  # noqa: F401
     PipekMezey, lowdin_populations, pm_localize)

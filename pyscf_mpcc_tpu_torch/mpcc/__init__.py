@@ -1,20 +1,8 @@
-"""Restricted MP-CC: the block masks, the masked CCSD solver (``rmpccsd``),
-the DF screened-CC2 low-level solver (``lowlevel``), the fragmented
-workflow and the ``MPCC(mf)`` facade.
-
-The open-shell modules (``umpccsd``, ``oomp2``) are ROADMAP A15b: asking
-this package for one raises NotImplementedError.
-"""
+"""MP-CC: the block masks, the masked CCSD solvers (``rmpccsd``,
+``umpccsd``), the OO-MP2 bath updates (``oomp2``), the DF screened-CC2
+low-level solver (``lowlevel``), the fragmented workflows and the
+``MPCC(mf)`` facade."""
 
 from pyscf_mpcc_tpu_torch.mpcc import (  # noqa: F401
-    lowlevel, masks, rmpccsd, workflow)
+    lowlevel, masks, oomp2, rmpccsd, umpccsd, workflow)
 from pyscf_mpcc_tpu_torch.mpcc.facade import MPCC  # noqa: F401
-
-_NOT_PORTED = ("umpccsd", "oomp2")
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"mpcc.{name} is ROADMAP A15b, not ported yet")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

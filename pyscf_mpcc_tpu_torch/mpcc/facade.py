@@ -22,16 +22,15 @@ class MPCC:
     """Restricted MP-CC driver.
 
     Like the reference, requires a DF mean field (the low-level solver is
-    DF-native); rejects unrestricted references for now (ROADMAP
-    A15b).  Runs on the CUDA device unless a CPU device is passed, in
+    DF-native); rejects unrestricted references, as the JAX package's
+    facade does (``mpcc.umpccsd`` and the unrestricted workflow take
+    them).  Runs on the CUDA device unless a CPU device is passed, in
     lib/device's dtype unless one is given.
     """
 
     def __init__(self, mf, run_lowlevel=True, *, device=None, dtype=None):
         if np.asarray(mf.mo_coeff).ndim == 3:
-            raise NotImplementedError(
-                "MPCC on an unrestricted reference is ROADMAP A15b, not "
-                "ported yet")
+            raise NotImplementedError("MPCC requires an RHF reference")
         self.device, self.dtype = _dev.resolve(device, dtype)
         self._scf = mf
         self.mol = mf.mol

@@ -9,7 +9,9 @@ Fock of sorted orbital energies with the occupied block shifted down),
 built on the target device from a seeded ``torch.Generator``.  The two
 generators give different numbers from the same seed; parity tests make
 their inputs with numpy instead.  ``synthetic_ueris`` is the same recipe
-per spin for the unrestricted container.
+per spin for the unrestricted container, and ``synthetic_ufactors`` the
+full-MO factors and one-electron integrals of the same numbers (the
+inputs of the DF T3 engine).
 """
 
 from __future__ import annotations
@@ -90,15 +92,10 @@ def synthetic_eris(nocc=4, nvir=16, naux=32, device=None, dtype=None,
     )
 
 
-def synthetic_ueris(nocca=4, noccb=3, nvira=12, nvirb=13, naux=32,
-                    device=None, dtype=None, seed=0, materialize=False):
-    """UERIs from random per-spin DF factors (the synthetic_eris recipe
-    for each spin), on ``device`` from a torch.Generator seeded with
-    ``seed``.  The o^2 v^2-class blocks are products of the same factors,
-    so materialize=True (the three-virtual blocks as tensors instead of
-    the factors; small shapes only) gives the same equations as the DF
-    container."""
-    device, dtype = _dev.resolve(device, dtype)
+def _synthetic_uspins(nocca, noccb, nvira, nvirb, naux, device, dtype,
+                      seed):
+    """Per spin (Loo, Lov, Lvv, fock) of the synthetic_eris recipe, drawn
+    from one torch.Generator seeded with ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def uniform(*shape):
@@ -113,8 +110,21 @@ def synthetic_ueris(nocca=4, noccb=3, nvira=12, nvirb=13, naux=32,
         return (0.5 * (Loo + Loo.transpose(1, 2)), Lov,
                 0.5 * (Lvv + Lvv.transpose(1, 2)), torch.diag(mo_e))
 
-    Loo_a, Lov_a, Lvv_a, fa = spin(nocca, nvira)
-    Loo_b, Lov_b, Lvv_b, fb = spin(noccb, nvirb)
+    return spin(nocca, nvira), spin(noccb, nvirb)
+
+
+def synthetic_ueris(nocca=4, noccb=3, nvira=12, nvirb=13, naux=32,
+                    device=None, dtype=None, seed=0, materialize=False):
+    """UERIs from random per-spin DF factors (the synthetic_eris recipe
+    for each spin), on ``device`` from a torch.Generator seeded with
+    ``seed``.  The o^2 v^2-class blocks are products of the same factors,
+    so materialize=True (the three-virtual blocks as tensors instead of
+    the factors; small shapes only) gives the same equations as the DF
+    container."""
+    device, dtype = _dev.resolve(device, dtype)
+    (Loo_a, Lov_a, Lvv_a, fa), (Loo_b, Lov_b, Lvv_b, fb) = \
+        _synthetic_uspins(nocca, noccb, nvira, nvirb, naux, device, dtype,
+                          seed)
 
     def ex(a, b):      # (xy|wz) stored [x,y,z,w]
         return pair(a, b).permute(0, 1, 3, 2).contiguous()
@@ -140,6 +150,32 @@ def synthetic_ueris(nocca=4, noccb=3, nvira=12, nvirb=13, naux=32,
     else:
         blocks.update(Lov_a=Lov_a, Lvv_a=Lvv_a, Lov_b=Lov_b, Lvv_b=Lvv_b)
     return UERIs(**blocks)
+
+
+def synthetic_ufactors(nocca=4, noccb=3, nvira=12, nvirb=13, naux=32,
+                       device=None, dtype=None, seed=0):
+    """(B, h) consistent with ``synthetic_ueris`` of the same arguments:
+    per-spin full-MO 3-center factors B[s] (naux, nmo, nmo), symmetric in
+    the orbital pair, whose blocks are that container's factors, and
+    one-electron integrals h[s] = fock_s - J + K_s, so that the dressed
+    Fock of cc.ccsdt_act.dress_df at t1 = 0 is the container's Fock (what
+    umpccsd.kernel_pert_df consumes beside the container)."""
+    device, dtype = _dev.resolve(device, dtype)
+    spins = _synthetic_uspins(nocca, noccb, nvira, nvirb, naux, device,
+                              dtype, seed)
+    B = []
+    for (Loo, Lov, Lvv, _), no in zip(spins, (nocca, noccb)):
+        B.append(torch.cat([torch.cat([Loo, Lov], dim=2),
+                            torch.cat([Lov.transpose(1, 2), Lvv], dim=2)],
+                           dim=1))
+    jtot = sum(torch.diagonal(b[:, :no, :no], dim1=1, dim2=2).sum(-1)
+               for b, no in zip(B, (nocca, noccb)))
+    h = []
+    for b, (*_, fock), no in zip(B, spins, (nocca, noccb)):
+        j = torch.einsum("Lpq,L->pq", b, jtot)
+        k = torch.einsum("Lpj,Ljq->pq", b[:, :, :no], b[:, :no, :])
+        h.append(fock - j + k)
+    return tuple(B), tuple(h)
 
 
 def random_triples_problem(nocc=3, nvir=7, seed=7, naux=None):

@@ -1,11 +1,11 @@
 """The port's copies of the JAX package's host layers (gto, df, lib.diis,
-lib.chkfile, lib.logger, lib.stream, config, lo.pm, mpcc.masks,
+lib.chkfile, lib.logger, lib.stream, config, lo.pm, lo.avas, mpcc.masks,
 scf.diis) against the originals.
 
 The port imports nothing of pyscf_mpcc_tpu, so it carries these NumPy/C++
 layers itself; they must stay the same functions.  On H2O/cc-pVDZ the
 integrals, the DF factor, a DIIS extrapolation, the Lowdin populations and
-a Pipek-Mezey localization, EDIIS/ADIIS extrapolations agree to 1e-12 (the same code on the same
+a Pipek-Mezey localization, the AVAS selection, EDIIS/ADIIS extrapolations agree to 1e-12 (the same code on the same
 inputs; only the native engine's thread order may move the last bits), a
 chk file written by either chkfile loads bit for bit in the other, the
 MP-CC block masks are identical arrays, and the vendored basis library is
@@ -23,13 +23,16 @@ from pyscf_mpcc_tpu import df as jdf
 from pyscf_mpcc_tpu import gto as jgto
 from pyscf_mpcc_tpu.lib import chkfile as jchkfile
 from pyscf_mpcc_tpu.lib import diis as jdiis
+from pyscf_mpcc_tpu.lo.avas import avas as javas
 from pyscf_mpcc_tpu.lo import pm as jpm
 from pyscf_mpcc_tpu.mpcc import masks as jmasks
 from pyscf_mpcc_tpu.scf import diis as jscf_diis
 from pyscf_mpcc_tpu_torch import config, df, gto
 from pyscf_mpcc_tpu_torch.gto import native
 from pyscf_mpcc_tpu_torch.lib import chkfile, diis, logger, stream
+from pyscf_mpcc_tpu_torch import lo
 from pyscf_mpcc_tpu_torch.lo import pm
+from pyscf_mpcc_tpu_torch.lo.avas import avas
 from pyscf_mpcc_tpu_torch.mpcc import masks
 from pyscf_mpcc_tpu_torch.scf import diis as scf_diis
 
@@ -171,6 +174,27 @@ def test_pm_localization_matches(mols):
     np.testing.assert_allclose(u.T @ u, np.eye(5), atol=1e-10)
     np.testing.assert_allclose(pm.PipekMezey(mol, C).kernel(), c_loc,
                                rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("patterns", [["O p"], ["O s", "H s"]])
+def test_avas_selection_matches(mols, patterns):
+    """lo.avas on S-orthonormal orbitals (five occupied): the same active
+    holes, particles and weights, S given or computed by each package's
+    gto; a pattern matching no AO raises."""
+    mol, jmol = mols
+    S = gto.intor_ovlp(mol)
+    w, v = np.linalg.eigh(S)
+    C = v / np.sqrt(w)
+    occ = np.zeros(mol.nao)
+    occ[:5] = 2.0
+    got = avas(mol, patterns, C, occ, threshold=0.2)
+    want = javas(jmol, patterns, C, occ, threshold=0.2, S=S)
+    for g, x in zip(got, want):
+        np.testing.assert_allclose(g, x, rtol=0, atol=TOL)
+    assert len(got[0]) + len(got[1]) >= 1
+    assert lo.avas is avas
+    with pytest.raises(ValueError, match="No AOs"):
+        avas(mol, ["Xe f"], C, occ)
 
 
 # (act_hole, act_particle, nocc, nvir, idx_s, idx_d)

@@ -22,7 +22,7 @@ from pyscf_mpcc_tpu.mpcc import lowlevel as jlowlevel
 from pyscf_mpcc_tpu.mpcc import rmpccsd as jrmpccsd
 from pyscf_mpcc_tpu.mpcc.masks import frozen_masks
 from pyscf_mpcc_tpu.testutil import h2o_ccpvdz
-from pyscf_mpcc_tpu_torch import convert, mpcc
+from pyscf_mpcc_tpu_torch import convert
 from pyscf_mpcc_tpu_torch.cc import rccsd
 from pyscf_mpcc_tpu_torch.mpcc import lowlevel, rmpccsd
 
@@ -181,9 +181,3 @@ def test_lowlevel_kernel_pin(ref):
     conv, e, t1, t2 = lowlevel.kernel(*tensors, fock, NOCC, conv_tol=1e-9)
     assert conv and t1.dtype == torch.float64
     assert abs(e - E_LL) < 1e-8 and e < E_MP2
-
-
-@pytest.mark.parametrize("name", ["umpccsd", "oomp2"])
-def test_open_shell_mpcc_not_ported(name):
-    with pytest.raises(NotImplementedError, match="A15b"):
-        getattr(mpcc, name)
