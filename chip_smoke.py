@@ -113,9 +113,27 @@ each, started together), then runs:
      variant, a kernel_pert_df cycle at 10+10 active split into its parts
      with seinsum's host share, and one environment T3 sweep at 2+2
      active on ENV_SHAPE, each with its peak memory.
+ 11. the (T)-response and spin-orbital layer (spinorb_phase): (a) fp64 on
+     the card: QCISD(T) of H2O/cc-pVDZ (the vfac=2 path) through the
+     combine kernel at chunk 1 and 4 and the resident kernel against
+     engine='xla' (relative 1e-10), in total and tile by tile, the CH4
+     QCISD pin, BCCD(T) of H2O/sto-3g (t1 = 0) through both kernels
+     against engine='xla' (1e-10), the restricted, UHF (uccsd_t_rdm_oh) and GHF
+     (gccsd_t_rdm_oh) (T) pins, Lambda(T) and the (T)-response RDM
+     identities in R, U and G, the GMP2 and DF-GMP2 (h2o_dfgmp2) pins,
+     kernel_pert_triples' three limits and the device DF J/K against the
+     host one; (b) the same solves in fp32 within 1e-6 Ha (the resident
+     kernel through engine='auto' at dot_precision='high'); (c)
+     (H2O)2/cc-pVTZ frozen core in fp32: the spinor-block build, QCISD
+     through QCISD(mf).run() (sweeps, s/sweep, peaks), .ccsd_t() through
+     the combine kernel and its first 16 tiles through both kernels
+     against engine='xla', BCCD(T) all-electron (tile 8) likewise, the
+     restricted Lambda(T) cycles and make_rdm12 (s, peak, the trace and
+     Euler identities), DF-GMP2.
 
 Every phase raises on failure.  The last lines are the kernel record
-(each kernel's launches on the full-width probe, its error against the
+(each kernel's launches on the full-width probe and phase 11's fp32 ones
+outside its comparisons with engine='xla', its error against the
 plain version, its time, the plain version's time and the least time the
 card could take, from the peak rates below), the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -123,6 +141,7 @@ Without a CUDA device, or without the repository beside it, the script
 exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -306,6 +325,25 @@ OH3_N_ACT = 10
 # ranges cut to 24/25 (its t3 is o^3 v^3 a block, 6.2e10 elements in
 # fp32 at nvir 198, 1.1e8 here)
 ENV_SHAPE = (20, 19, 24, 25, 526)
+# phase 11 pins, from the JAX package's tests and docs/reference_pins.json:
+# CH4/cc-pVDZ frozen-core QCISD total (tests/test_qcisd.py:9, the
+# reference's test_qcisd.py), the (T) energies of uccsd_t_rdm_oh (OH/6-31g
+# UHF) and gccsd_t_rdm_oh (OH/sto-3g GHF), and h2o_dfgmp2
+# (tests/test_dfgmp2.py:20-23)
+CH4_ATOM = """C  0.000  0.000  0.000
+              H  0.637  0.637  0.637
+              H -0.637 -0.637  0.637
+              H -0.637  0.637 -0.637
+              H  0.637 -0.637 -0.637"""
+E_TOT_CH4_QCISD = -40.3839884
+ET_UCCSD_T_RDM_OH = -0.0005574953727482226
+ET_GCCSD_T_RDM_OH = -2.3003877157816884e-07
+DFGMP2_ATOM = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
+E_DFGMP2 = {"sto-3g": -0.035490285389463326, "631g": -0.12877271226149506}
+# (H2O)2/cc-pVTZ: the first two waters of the (H2O)8 cube of
+# examples/w8_ccsd_pipeline.py (testing.W4_GEOM[:6]); nao 116, two O 1s
+# frozen: restricted (nocc, nvir) (8, 106), spinor (16, 212)
+W2_BASIS, NPROBE_SO = "cc-pvtz", 16
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
@@ -1295,6 +1333,565 @@ def umpcc_phase(torch, smi, dev, mf_df):
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
 
 
+def spinorb_phase(torch, smi, dev):
+    """Phase 11: the (T)-response and spin-orbital layer on the card.
+    (a) pins in fp64: QCISD(T) of H2O/cc-pVDZ through the combine kernel
+    (chunk 1 and 4), the resident kernel and engine='xla', CH4 QCISD,
+    BCCD(T), the R/U/G (T) energies, Lambda(T) and RDM identities, GMP2,
+    DF-GMP2, kernel_pert_triples' limits, the device DF J/K; (b) the same
+    solves in fp32 (the resident kernel through engine='auto' at
+    dot_precision='high'); (c) (H2O)2/cc-pVTZ frozen core in fp32:
+    QCISD(mf).run().ccsd_t(), BCCD(T), each with its first 16 tiles held
+    against engine='xla', the restricted Lambda(T) and make_rdm12,
+    DF-GMP2.  Returns the combine/chunk/resident kernel launches of the
+    phase by dtype ({'fp32': {...}, 'fp64': {...}}), each counted from 0
+    just before its runs; launches that only compare a kernel with
+    engine='xla' are in neither."""
+    import numpy as np
+
+    from pyscf_mpcc_tpu_torch import ao2mo, gto, testing
+    from pyscf_mpcc_tpu_torch import scf as pscf
+    from pyscf_mpcc_tpu_torch.cc import (bccd, ccsd_t, ccsd_t_rdm,
+                                         eom_slow, gccsd, gccsd_slow,
+                                         gccsd_t_rdm, gccsdt_slow,
+                                         lambda_ad, qcisd, rccsd, uccsd,
+                                         uccsd_t_rdm)
+    from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
+    from pyscf_mpcc_tpu_torch.mp import dfgmp2, gmp2
+    from pyscf_mpcc_tpu_torch.mpcc import umpccsd
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    from pyscf_mpcc_tpu_torch.scf.hf import _JKDF
+
+    f64, f32 = torch.float64, torch.float32
+    tight = {f64: dict(conv_tol=1e-11, conv_tol_normt=1e-9, max_cycle=100),
+             f32: TOL_FP32}
+    # the phase's kernel launches by dtype.  The fp32 tally joins rows 1-3
+    # of the kernel record, whose times are fp32 readings; its resident
+    # launches all come through dot_precision='high', mode split, the mode
+    # the resident row times.  The fp64 tally (the combine kernel in fp64,
+    # the resident kernel in mode f32) is reported beside the record.
+    launches = {dt: {"fused": 0, "chunk": 0, "resident": 0}
+                for dt in (f32, f64)}
+
+    def counted(kind, fn, dt):
+        """fn() with the kind's kernel count zeroed just before and read
+        just after, added to dt's tally; returns (fn(), launches)."""
+        mod = tr if kind == "resident" else tc
+        mod.launch_count = 0
+        out = fn()
+        n = mod.launch_count
+        launches[dt][kind] += n
+        return out, n
+
+    def uncounted(kind, fn):
+        """fn() for a comparison with engine='xla': raises if the kind's
+        kernel did not launch; the launches join no tally."""
+        mod = tr if kind == "resident" else tc
+        n0 = mod.launch_count
+        out = fn()
+        if mod.launch_count == n0:
+            raise RuntimeError(f"{kind} comparison launched no kernel")
+        return out
+
+    @contextlib.contextmanager
+    def tiles(lo, hi):
+        """ccsd_t.kernel runs only the tiles lo:hi of its triangle."""
+        orig = ccsd_t._tile_triples
+        ccsd_t._tile_triples = lambda nvt: orig(nvt)[lo:hi]
+        try:
+            yield
+        finally:
+            ccsd_t._tile_triples = orig
+
+    def by_tile(inp, tile, vfac):
+        """Each tile's E(T) of inp, one ccsd_t.kernel call a tile, through
+        engine='xla' and both kernels at full precision (comparison
+        launches)."""
+        ntile = len(ccsd_t._tile_triples(-(-inp[0].shape[1] // tile)))
+        out = {"xla": [], "fused": [], "resident": []}
+        for n in range(ntile):
+            with tiles(n, n + 1):
+                for k, v in out.items():
+                    def run():
+                        return ccsd_t.kernel(*inp, tile=tile, vfac=vfac,
+                                             engine=k)
+                    v.append(run() if k == "xla" else uncounted(k, run))
+        return {k: np.array(v) for k, v in out.items()}
+
+    def probe(inp, tile, vfac, what):
+        """The first NPROBE_SO tiles of inp through the combine kernel and
+        the resident kernel (dot_precision='high', mode split) against
+        engine='xla', each timed warm (comparison launches); raises beyond
+        RTOL_TILE_FP32 and RTOL_SPLIT.  Returns ({engine: (E, s)},
+        {kernel: relative difference})."""
+        def run(**kw):
+            return ccsd_t.kernel(*inp, tile=tile, vfac=vfac, **kw)
+        with tiles(0, NPROBE_SO):
+            p = {"xla": seconds(torch, lambda: run(engine="xla"))}
+            for kind, kw in (("fused", dict(engine="fused")),
+                             ("resident", dict(dot_precision="high"))):
+                run(**kw)
+                p[kind] = uncounted(kind, lambda: seconds(
+                    torch, lambda: run(**kw)))
+        rel = {k: abs(p[k][0] / p["xla"][0] - 1)
+               for k in ("fused", "resident")}
+        if not (rel["fused"] < RTOL_TILE_FP32
+                and rel["resident"] < RTOL_SPLIT):
+            raise RuntimeError(f"{what}: first {NPROBE_SO} tiles against "
+                               f"xla: {rel}")
+        return p, rel
+
+    def mean_field(cls, atom, basis, spin=0, unit="angstrom", df=False):
+        mf = getattr(pscf, cls)(gto.M(atom=atom, basis=basis, spin=spin,
+                                      unit=unit))
+        if df:
+            mf = mf.density_fit()
+        mf.conv_tol = 1e-12
+        mf.conv_tol_grad = 1e-9
+        mf.kernel()
+        if not mf.converged:
+            raise RuntimeError(f"{cls} {atom} {basis} unconverged")
+        return mf
+
+    def finite(*xs):
+        return all(bool(torch.isfinite(x).all()) for x in xs)
+
+    # host mean fields, shared by (a) and (b)
+    h2o = mean_field("RHF", testing.GEOMS["sym"], "cc-pvdz")
+    tilt = mean_field("RHF", testing.GEOMS["tilt"], "cc-pvdz")
+    h2o_min = mean_field("RHF", DFGMP2_ATOM, "sto-3g")
+    oh_u = mean_field("UHF", "O 0 0 0; H 0 0 0.97", "6-31g", spin=1)
+    oh_g = mean_field("GHF", "O 0 0 0; H 0 0 0.97", "sto-3g", spin=1)
+    eri_min = gto.intor_eri(h2o_min.mol)
+
+    def solves(dt):
+        """The (a)/(b) energies on the card in dtype dt."""
+        t0 = time.perf_counter()
+        r = {}
+        # QCISD(T) of H2O/cc-pVDZ through every (T) engine
+        q = qcisd.QCISD(h2o, device=dev, dtype=dt)
+        q.conv_tol, q.conv_tol_normt = (tight[dt]["conv_tol"],
+                                        tight[dt]["conv_tol_normt"])
+        q.run()
+        if not (q.converged and q.t2.dtype == dt):
+            raise RuntimeError(f"QCISD {dt} unconverged")
+        r["qcisd"] = q.e_corr
+        resident = (dict(engine="resident") if dt == f64
+                    else dict(dot_precision="high"))
+        for name, kind, kw in (("t_fused", "fused", {}),
+                               ("t_chunk4", "chunk", dict(engine="fused",
+                                                          chunk=4)),
+                               ("t_resident", "resident", resident),
+                               ("t_xla", None, dict(engine="xla"))):
+            if kind is None:
+                r[name] = q.ccsd_t(**kw)
+                continue
+            r[name], n = counted(kind, lambda: q.ccsd_t(**kw), dt)
+            if n == 0:
+                raise RuntimeError(f"QCISD(T) {name} launched no kernel")
+        t_tiles = by_tile(q.triples_inputs(), 4, 2.0) if dt == f64 else None
+        del q
+        # BCCD(T) of H2O/sto-3g: t1 = 0 through both kernels and 'xla', on
+        # the inputs bccd.kernel_t builds (its body, step by step)
+        e_b, mo_b, bt2, _ = bccd.kernel(
+            h2o_min, eri_min, t1_tol=1e-7 if dt == f64 else 1e-5,
+            cc_conv=tight[dt]["conv_tol"],
+            cc_conv_normt=tight[dt]["conv_tol_normt"], device=dev,
+            dtype=dt)
+        inp = bccd.triples_inputs(h2o_min, eri_min, mo_b, bt2)
+        r["bccd"] = e_b
+        for name, kind, kw in (("bccd_t", "fused", {}),
+                               ("bccd_t_resident", "resident", resident),
+                               ("bccd_t_xla", None, dict(engine="xla"))):
+            def run():
+                return ccsd_t.kernel(*inp, tile=bccd.TILE_T, **kw)
+            if kind is None:
+                r[name] = run()
+                continue
+            r[name], n = counted(kind, run, dt)
+            if n == 0:
+                raise RuntimeError(f"BCCD(T) {name} launched no kernel")
+        del inp, bt2
+        # restricted (T) functional at the tilted geometry's CCSD
+        er = eris_mod.make_eris_incore(gto.intor_eri(tilt.mol),
+                                       tilt.mo_coeff,
+                                       tilt.get_fock(tilt.make_rdm1()), 5,
+                                       dt, device=dev)
+        c, _, t1, t2 = rccsd.kernel(er, **tight[dt])
+        if not c:
+            raise RuntimeError(f"tilt CCSD {dt} unconverged")
+        r["et_dense_tilt"] = float(ccsd_t_rdm.e_t_dense(t1, t2, er))
+        # UCCSD(T) functional of OH/6-31g
+        eru = uccsd.eris_from_scf(oh_u, dt, device=dev)
+        c, _, u1, u2 = uccsd.kernel(eru, **tight[dt])
+        if not c:
+            raise RuntimeError(f"OH UCCSD {dt} unconverged")
+        r["et_u"] = float(uccsd_t_rdm.e_t_dense_u(u1, u2, eru))
+        # GCCSD(T) functional of OH/sto-3g GHF
+        erg = gccsd.make_eris_ghf(oh_g, dtype=dt, device=dev)
+        e_g, g1, g2, c = gccsd.kernel(erg, **tight[dt])
+        if not c:
+            raise RuntimeError(f"OH GCCSD {dt} unconverged")
+        r["gccsd"], r["et_g"] = e_g, float(gccsd_t_rdm.e_t_g(g1, g2, erg))
+        # GMP2 and DF-GMP2
+        r["gmp2"] = gmp2.GMP2(h2o, device=dev, dtype=dt).run().e_corr
+        # (the pins' orbitals are the exact RHF's; DFGMP2 fits the factors)
+        for basis in ("sto-3g", "631g"):
+            mf = mean_field("RHF", DFGMP2_ATOM, basis)
+            r[f"dfgmp2_{basis}"] = dfgmp2.DFGMP2(mf, device=dev,
+                                                 dtype=dt).run().e_corr
+        extra = dict(tilt=(er, t1, t2), u=(eru, u1, u2), g=(erg, g1, g2),
+                     t_tiles=t_tiles)
+        return r, extra, time.perf_counter() - t0
+
+    def to_xla(r, names, ref):
+        """Each engine's E(T) minus engine='xla''s."""
+        return {k: r[k] - r[ref] for k in names}
+
+    q_names = ("t_fused", "t_chunk4", "t_resident")
+    b_names = ("bccd_t", "bccd_t_resident")
+
+    # ---- (a) fp64 ------------------------------------------------------
+    r64, x64, sec64 = solves(f64)
+    dq, db = to_xla(r64, q_names, "t_xla"), to_xla(r64, b_names, "bccd_t_xla")
+    # tile by tile: a kernel's fp64 tile energy differs from the plain
+    # one's only in the order of its sums
+    tt = x64.pop("t_tiles")
+    d_tile = {k: float(np.abs(tt[k] - tt["xla"]).max())
+              for k in ("fused", "resident")}
+    tile_scale = float(np.abs(tt["xla"]).max())
+    checks = {
+        "qcisd_t_engines": all(abs(d) <= RTOL_FP64 * abs(r64["t_xla"])
+                               for d in dq.values())
+        and abs(r64["t_xla"]) > 1e-4,
+        "qcisd_t_tiles": max(d_tile.values()) <= RTOL_FP64 * tile_scale,
+        "bccd_t_engines": all(abs(d) <= RTOL_FP64 * abs(r64["bccd_t_xla"])
+                              for d in db.values())
+        and r64["bccd_t_xla"] < 0 and abs(r64["bccd"]) > 1e-3,
+        "et_tilt_pin": abs(r64["et_dense_tilt"] - E_T_TILT) < 1e-9,
+        "uccsd_t_rdm_oh": abs(r64["et_u"] - ET_UCCSD_T_RDM_OH) < 1e-10,
+        "gccsd_t_rdm_oh": abs(r64["et_g"] - ET_GCCSD_T_RDM_OH) < 1e-12,
+        "gmp2": abs(r64["gmp2"] - E_MP2_SYM) < 1e-9,
+        "dfgmp2": all(abs(r64[f"dfgmp2_{b}"] - e) < 1e-9
+                      for b, e in E_DFGMP2.items())}
+    if not all(checks.values()):
+        raise RuntimeError(f"phase 11 fp64 pins: {checks} {r64}")
+    say(11, "spin-orbital and (T)-response pins fp64 ok",
+        **{k: repr(v) for k, v in r64.items()},
+        qcisd_t_minus_xla=json.dumps(dq), bccd_t_minus_xla=json.dumps(db),
+        rtol=RTOL_FP64, seconds=f"{sec64:.1f}")
+    # why the totals can agree to the last bit: the tiles' own differences
+    # against the half-ulp of the fp64 running sum
+    say(11, "qcisd(t) fp64 tile by tile", tiles=len(tt["xla"]),
+        max_abs_tile_diff=json.dumps(d_tile),
+        sum_abs_tile_diff=json.dumps({k: float(np.abs(tt[k] - tt["xla"])
+                                               .sum())
+                                      for k in ("fused", "resident")}),
+        max_abs_tile=repr(tile_scale),
+        half_ulp_of_total=repr(float(np.spacing(abs(r64["t_xla"])) / 2)),
+        tiles_bit_equal=json.dumps({k: int((tt[k] == tt["xla"]).sum())
+                                    for k in ("fused", "resident")}))
+
+    t0 = time.perf_counter()
+    ch4 = mean_field("RHF", CH4_ATOM, "cc-pvdz")
+    q = qcisd.QCISD(ch4, frozen=1, device=dev, dtype=f64)
+    q.conv_tol, q.conv_tol_normt = 1e-10, 1e-8
+    q.run()
+    if not (q.converged and abs(q.e_tot - E_TOT_CH4_QCISD) < 1e-6):
+        raise RuntimeError(f"CH4 QCISD {q.e_tot!r} off its pin")
+    say(11, "ch4 qcisd pin ok", e_tot=repr(q.e_tot),
+        err=f"{q.e_tot - E_TOT_CH4_QCISD:.2e}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del q
+
+    # Lambda(T) and the (T)-response RDM identities in R, U and G
+    t0 = time.perf_counter()
+    ident = {}
+    er, t1, t2 = x64["tilt"]
+    c, l1, l2 = ccsd_t_rdm.lambda_kernel(t1, t2, er, conv_tol=1e-10)
+    mo = torch.tensor(tilt.mo_coeff, device=dev, dtype=f64)
+    h = mo.T @ torch.tensor(tilt.get_hcore(), device=dev, dtype=f64) @ mo
+    g = ao2mo.full(torch.tensor(gto.intor_eri(tilt.mol), device=dev,
+                                dtype=f64), mo)
+    d1, d2 = ccsd_t_rdm.make_rdm12(h, g, t1, t2, l1, l2, 5)
+    e_ccsd = float(rccsd.energy(t1, t2, er))
+    ident["r"] = (c, float((d1 * h).sum() + 0.5 * (g * d2).sum())
+                  - (tilt.e_tot - tilt.mol.energy_nuc() + e_ccsd
+                     + r64["et_dense_tilt"]))
+    eru, u1, u2 = x64["u"]
+    c, l1, l2 = uccsd_t_rdm.lambda_kernel_u(u1, u2, eru, conv_tol=1e-9,
+                                            max_cycle=100)
+    moa, mob = (torch.tensor(m, device=dev, dtype=f64)
+                for m in oh_u.mo_coeff)
+    hao = torch.tensor(oh_u.get_hcore(), device=dev, dtype=f64)
+    eri = torch.tensor(gto.intor_eri(oh_u.mol), device=dev, dtype=f64)
+    ints = (moa.T @ hao @ moa, mob.T @ hao @ mob, ao2mo.full(eri, moa),
+            ao2mo.general(eri, (moa, moa, mob, mob)), ao2mo.full(eri, mob))
+    (a1, b1), (aa, ab, bb) = uccsd_t_rdm.make_rdm12(
+        *ints, u1, u2, l1, l2, *oh_u.mol.nelec)
+    e_dm = float((a1 * ints[0]).sum() + (b1 * ints[1]).sum()
+                 + 0.5 * (ints[2] * aa).sum() + 0.5 * (ints[4] * bb).sum()
+                 + (ints[3] * ab).sum())
+    e_u = float(uccsd.energy(u1, u2, eru))
+    ident["u"] = (c, e_dm - (oh_u.e_tot - oh_u.mol.energy_nuc() + e_u
+                             + r64["et_u"]))
+    erg, g1, g2 = x64["g"]
+    c, l1, l2 = gccsd_t_rdm.lambda_kernel_g(g1, g2, erg, conv_tol=1e-9,
+                                            max_cycle=100)
+    C = torch.tensor(oh_g.mo_coeff, device=dev, dtype=f64)
+    eri = torch.tensor(gto.intor_eri(oh_g.mol), device=dev, dtype=f64)
+    gch = gccsd._spinor_chem(eri, C, C, C, C)
+    nao = oh_g.mol.nao
+    h1 = torch.tensor(np.asarray(oh_g.get_hcore())[:nao, :nao], device=dev,
+                      dtype=f64)
+    hso = C[:nao].T @ h1 @ C[:nao] + C[nao:].T @ h1 @ C[nao:]
+    d1, d2 = gccsd_t_rdm.make_rdm12(hso, gch, g1, g2, l1, l2, erg.nocc)
+    ident["g"] = (c, float((d1 * hso).sum() + 0.5 * (gch * d2).sum())
+                  - (oh_g.e_tot - oh_g.mol.energy_nuc() + r64["gccsd"]
+                     + r64["et_g"]))
+    if not all(c and abs(d) < ATOL_RDM for c, d in ident.values()):
+        raise RuntimeError(f"(T)-response RDM identities: {ident}")
+    say(11, "lambda(T) and rdm identities fp64 ok",
+        **{f"d_{k}": f"{d:.2e}" for k, (_, d) in ident.items()},
+        atol=ATOL_RDM, seconds=f"{time.perf_counter() - t0:.1f}")
+    del x64, er, eru, erg, d1, d2, aa, ab, bb, ints, gch, g
+
+    # kernel_pert_triples' limits (the host spin-orbital engines) on H4
+    t0 = time.perf_counter()
+    h4 = mean_field("RHF", "H 0 0 0; H 0 0 0.9; H 0 0 1.8; H 0 0 2.7",
+                    "sto-3g")
+    so = gccsd_slow.eris_from_scf(h4)
+    kw = dict(conv_tol=1e-11, conv_tol_normt=1e-9)
+    e_cc = gccsd_slow.kernel(so, max_cycle=300, **kw)[0]
+    e_t = gccsdt_slow.kernel(so, eom_slow.h_so_from_eris(so), model="ccsdt",
+                             max_cycle=200, **kw)[0]
+    lim = {"ccsd": umpccsd.kernel_pert_triples(
+               h4, ([], []), ([], []), [], [], model="ccsdt", **kw),
+           "ccsdt": umpccsd.kernel_pert_triples(
+               h4, ([0, 1], [0, 1]), ([0, 1], [0, 1]), [], [],
+               model="ccsdt", **kw),
+           "frozen_bath": umpccsd.kernel_pert_triples(
+               h4, ([1], [1]), ([0], [0]), [], list(range(15)),
+               model="ccsdt-3", conv_tol=1e-10, conv_tol_normt=1e-8)}
+    if not (all(x[-1] for x in lim.values())
+            and abs(lim["ccsd"][0] - e_cc) < 1e-9
+            and abs(lim["ccsdt"][0] - e_t) < 1e-9
+            and abs(lim["frozen_bath"][0] - e_cc) < 0.05):
+        raise RuntimeError(f"kernel_pert_triples limits: "
+                           f"{[x[0] for x in lim.values()]} {e_cc} {e_t}")
+    say(11, "kernel_pert_triples limits ok",
+        **{k: repr(float(x[0])) for k, x in lim.items()},
+        e_ccsd=repr(float(e_cc)),
+        e_ccsdt=repr(float(e_t)), seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # the device DF J/K against the host one
+    mfd = mean_field("RHF", testing.GEOMS["sym"], "cc-pvdz", df=True)
+    B = mfd.with_df.B_ao()
+    dm = mfd.make_rdm1()
+    jk = {"host": _JKDF(B).get_jk(dm),
+          f64: _JKDF(B, device=dev, dtype=f64).get_jk(dm),
+          f32: _JKDF(B, device=dev, dtype=f32).get_jk(dm)}
+    mfd._jk = _JKDF(B, device=dev)
+    e_dev = mfd.kernel()
+    djk = {dt: max(float(np.abs(a - b).max())
+                   for a, b in zip(jk[dt], jk["host"])) for dt in (f64, f32)}
+    scale = max(float(np.abs(x).max()) for x in jk["host"])
+    if not (djk[f64] < 1e-10 and djk[f32] < 1e-5 * scale
+            and abs(e_dev - mfd.e_tot) < 1e-12 and mfd.converged):
+        raise RuntimeError(f"device DF J/K: {djk} {scale}")
+    say(11, "device df j/k ok", max_diff_fp64=f"{djk[f64]:.2e}",
+        max_diff_fp32=f"{djk[f32]:.2e}", jk_scale=f"{scale:.3f}",
+        rhf_on_card_fp32=repr(e_dev))
+
+    # ---- (b) fp32 ------------------------------------------------------
+    r32, x32, sec32 = solves(f32)
+    del x32
+    d32 = {k: abs(r32[k] - r64[k]) for k in r64}
+    if not max(d32.values()) < ATOL_MAIN_FP32:
+        raise RuntimeError(f"phase 11 fp32 vs fp64: {d32}")
+    say(11, "fp32 vs fp64 ok", max_abs_diff=f"{max(d32.values()):.3e}",
+        worst=max(d32, key=d32.get), atol=ATOL_MAIN_FP32,
+        qcisd_t_minus_xla_fp32=json.dumps(to_xla(r32, q_names, "t_xla")),
+        bccd_t_minus_xla_fp32=json.dumps(to_xla(r32, b_names,
+                                                "bccd_t_xla")),
+        seconds=f"{sec32:.1f}")
+
+    # ---- (c) (H2O)2/cc-pVTZ frozen core, fp32 ---------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mol = gto.M(atom=testing.W4_GEOM[:6], basis=W2_BASIS)
+    mf = pscf.RHF(mol).density_fit()
+    mf.conv_tol = 1e-10
+    mf.kernel()
+    s_scf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eri_ao = gto.intor_eri(mol)
+    s_eri = time.perf_counter() - t0
+    nfz = 2
+    no, nmo = mol.nelectron // 2 - nfz, mol.nao - nfz
+    say(11, "(H2O)2/cc-pVTZ host set-up", nao=mol.nao, nocc=no,
+        nvir=nmo - no, nso=2 * nmo, scf_converged=mf.converged,
+        e_scf=repr(mf.e_tot), sec_df_rhf=f"{s_scf:.1f}",
+        sec_ao_eri=f"{s_eri:.1f}")
+    if not mf.converged:
+        raise RuntimeError("(H2O)2 DF-RHF unconverged")
+
+    # the nine spinor blocks, built on the card one at a time
+    torch.cuda.reset_peak_memory_stats()
+    ge, s_build = seconds(torch, lambda: qcisd.make_geris_rhf(
+        mf, nfz, f32, device=dev))
+    peak_build = torch.cuda.max_memory_allocated()
+    gib_blocks = nbytes(list(ge.b.values())) / 2**30
+    del ge
+    torch.cuda.empty_cache()
+    # QCISD through the facade, its sweeps counted
+    q = qcisd.QCISD(mf, frozen=nfz, device=dev, dtype=f32)
+    q.conv_tol, q.conv_tol_normt = (TOL_FP32["conv_tol"],
+                                    TOL_FP32["conv_tol_normt"])
+    upd, nsweep = gccsd._update, [0]
+
+    def counting(*a, **k):
+        nsweep[0] += 1
+        return upd(*a, **k)
+
+    gccsd._update = counting
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, s_run = seconds(torch, q.run)
+    finally:
+        gccsd._update = upd
+    peak_run = torch.cuda.max_memory_allocated()
+    if not (q.converged and finite(q.t1, q.t2)):
+        raise RuntimeError("(H2O)2 QCISD unconverged")
+    # one sweep alone, at the converged amplitudes
+    torch.cuda.reset_peak_memory_stats()
+    _, s_sweep = seconds(torch, lambda: gccsd._update(
+        q.t1, q.t2, q._geris.b, q._geris.fock, q._geris.nocc,
+        variant="qcisd"))
+    peak_sweep = torch.cuda.max_memory_allocated()
+    q._geris = None
+    torch.cuda.empty_cache()
+    say(11, "(H2O)2/cc-pVTZ qcisd fp32", e_corr=repr(q.e_corr),
+        sweeps=nsweep[0], sec_run=f"{s_run:.2f}",
+        sec_per_sweep_in_run=f"{s_run / max(nsweep[0], 1):.3f}",
+        sec_one_sweep=f"{s_sweep:.3f}", gib_blocks=f"{gib_blocks:.2f}",
+        sec_block_build=f"{s_build:.2f}",
+        peak_gib_block_build=f"{peak_build / 2**30:.2f}",
+        peak_gib_run=f"{peak_run / 2**30:.2f}",
+        peak_gib_sweep=f"{peak_sweep / 2**30:.2f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    # QCISD(T) through the entry point (engine 'auto': the combine kernel;
+    # the call builds the AO ERI on the host and the RERIs on the card)
+    (et, s_t), n_t = counted("fused", lambda: seconds(torch, q.ccsd_t), f32)
+    nv = nmo - no
+    ntrip = -(-nv // 4) * (-(-nv // 4) + 1) * (-(-nv // 4) + 2) // 6
+    if not (n_t > 0 and et < 0 and et == et):
+        raise RuntimeError(f"(H2O)2 QCISD(T) {et} ({n_t} launches)")
+    # the tile loop alone, on the inputs the entry point builds, and its
+    # first 16 tiles through each kernel against engine='xla'
+    inp = q.triples_inputs()
+    del q
+    (et_loop, s_loop), n = counted("fused", lambda: seconds(
+        torch, lambda: ccsd_t.kernel(*inp, tile=4, vfac=2.0)), f32)
+    if not abs(et_loop / et - 1) < RTOL_TILE_FP32:
+        raise RuntimeError(f"(H2O)2 QCISD(T) tile loop {et_loop} against "
+                           f"the entry point's {et}")
+    p, rel = probe(inp, 4, 2.0, "(H2O)2 QCISD(T)")
+    del inp
+    say(11, "(H2O)2/cc-pVTZ qcisd(t) fp32", e_t=repr(et), tiles=ntrip,
+        launches=n_t, sec_entry_point=f"{s_t:.2f}",
+        sec_tile_loop=f"{s_loop:.2f}",
+        ms_per_tile=f"{s_loop / ntrip * 1e3:.3f}", probe_tiles=NPROBE_SO,
+        probe_e=json.dumps({k: v[0] for k, v in p.items()}),
+        probe_rel_to_xla=json.dumps({k: f"{v:.2e}" for k, v in rel.items()}),
+        probe_ms_per_tile=json.dumps({k: round(v[1] / NPROBE_SO * 1e3, 3)
+                                      for k, v in p.items()}))
+
+    # BCCD(T) on the same mean field (all electrons, as the JAX package):
+    # bccd.kernel_t's body step by step, so that its first 16 tiles are
+    # held against engine='xla' on the inputs the full (T) ran on
+    torch.cuda.reset_peak_memory_stats()
+    (e_b, mo_b, bt2, nmac), s_b = seconds(torch, lambda: bccd.kernel(
+        mf, eri_ao, cc_conv=TOL_FP32["conv_tol"],
+        cc_conv_normt=TOL_FP32["conv_tol_normt"], device=dev, dtype=f32))
+    inp = bccd.triples_inputs(mf, eri_ao, mo_b, bt2)
+    (e_bt, s_bt), n_b = counted("fused", lambda: seconds(
+        torch, lambda: ccsd_t.kernel(*inp, tile=bccd.TILE_T)), f32)
+    peak_b = torch.cuda.max_memory_allocated()
+    if not (n_b > 0 and e_bt < 0 and e_b < 0):
+        raise RuntimeError(f"(H2O)2 BCCD(T) {e_b} {e_bt} ({n_b} launches)")
+    p, rel = probe(inp, bccd.TILE_T, 1.0, "(H2O)2 BCCD(T)")
+    del inp, bt2
+    say(11, "(H2O)2/cc-pVTZ bccd(t) fp32", e_bccd=repr(e_b), e_t=repr(e_bt),
+        macro_iterations=nmac, launches=n_b, sec_bccd=f"{s_b:.2f}",
+        sec_t=f"{s_bt:.2f}", peak_gib=f"{peak_b / 2**30:.2f}",
+        probe_tiles=NPROBE_SO,
+        probe_e=json.dumps({k: v[0] for k, v in p.items()}),
+        probe_rel_to_xla=json.dumps({k: f"{v:.2e}" for k, v in rel.items()}),
+        probe_ms_per_tile=json.dumps({k: round(v[1] / NPROBE_SO * 1e3, 3)
+                                      for k, v in p.items()}))
+
+    # restricted Lambda-CCSD(T) and make_rdm12 at the frozen-core CCSD
+    C = np.asarray(mf.mo_coeff)[:, nfz:]
+    er = eris_mod.make_eris_incore(eri_ao, C, mf.get_fock(mf.make_rdm1()),
+                                   no, f32, device=dev)
+    (c, e_cc, t1, t2), s_cc = seconds(torch, lambda: rccsd.kernel(
+        er, **TOL_FP32))
+    if not c:
+        raise RuntimeError("(H2O)2 CCSD unconverged")
+    torch.cuda.reset_peak_memory_stats()
+    (_, l1, l2), s_lam = seconds(torch, lambda: ccsd_t_rdm.lambda_kernel(
+        t1, t2, er, max_cycle=2, conv_tol=0.0))
+    peak_lam = torch.cuda.max_memory_allocated()
+    Cd = torch.tensor(C, device=dev, dtype=f64)
+    h = (Cd.T @ torch.tensor(mf.get_hcore(), device=dev, dtype=f64)
+         @ Cd).to(f32)
+    g = ao2mo.full(torch.tensor(eri_ao, device=dev, dtype=f64), Cd).to(f32)
+    del er, Cd
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (d1, d2), s_rdm = seconds(torch, lambda: ccsd_t_rdm.make_rdm12(
+        h, g, t1, t2, l1, l2, no))
+    peak_rdm = torch.cuda.max_memory_allocated()
+    # the Lagrangian is homogeneous of degree one in (h, g) (E(T) too:
+    # W Z / D, two degrees over one), so h.d1 + 1/2 g.d2 equals it for any
+    # amplitudes and multipliers, and a uniform shift of h leaves all but
+    # the HF part unchanged, so tr d1 = 2 nocc; both at fp32 resolution
+    dm = torch.zeros(nmo, nmo, device=dev, dtype=f32)
+    dm.diagonal()[:no] = 2.0
+    lag = float(lambda_ad._lagrangian_of_integrals(
+        h, g, dm, t1, t2, l1, l2, no, e_extra=ccsd_t_rdm.e_t_dense))
+    e_dm = float((d1 * h).sum() + 0.5 * (g * d2).sum())
+    tr1 = float(torch.trace(d1))
+    if not (finite(l1, l2, d1, d2) and abs(tr1 - 2 * no) < 1e-3
+            and abs(e_dm - lag) < 1e-5 * abs(lag)):
+        raise RuntimeError(f"(H2O)2 Lambda(T)/RDMs: tr {tr1}, "
+                           f"E(dm) {e_dm} against L {lag}")
+    say(11, "(H2O)2/cc-pVTZ lambda(T) and rdm fp32", e_ccsd=repr(float(e_cc)),
+        sec_ccsd=f"{s_cc:.2f}", sec_per_lambda_cycle=f"{s_lam / 2:.3f}",
+        peak_gib_lambda=f"{peak_lam / 2**30:.2f}", sec_rdm=f"{s_rdm:.3f}",
+        peak_gib_rdm=f"{peak_rdm / 2**30:.2f}",
+        trace_rdm1=f"{tr1:.6f}", e_dm=repr(e_dm), lagrangian=repr(lag),
+        cube_gib=f"{(nmo - no) ** 3 * no ** 3 * 4 / 2**30:.2f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    del t1, t2, l1, l2, d1, d2, h, g, dm
+    torch.cuda.empty_cache()
+
+    # DF-GMP2 on the DF mean field, fp32 against fp64
+    e_df = {}
+    for dt in (f32, f64):
+        (e_df[dt], _), s = seconds(torch, lambda: dfgmp2.DFGMP2(
+            mf, frozen=nfz, device=dev, dtype=dt).kernel())
+    if not abs(e_df[f32] - e_df[f64]) < ATOL_MAIN_FP32:
+        raise RuntimeError(f"(H2O)2 DF-GMP2 fp32 vs fp64: {e_df}")
+    say(11, "(H2O)2/cc-pVTZ df-gmp2", e_corr_fp32=repr(e_df[f32]),
+        e_corr_fp64=repr(e_df[f64]),
+        diff=f"{abs(e_df[f32] - e_df[f64]):.2e}", sec_fp64=f"{s:.3f}")
+    return {"fp32": launches[f32], "fp64": launches[f64]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2219,6 +2816,18 @@ def main():
     umpcc_phase(torch, smi, dev, mf_oh)
     del mf_oh
     say(10, "done", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 11: the (T)-response and spin-orbital layer ---------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    so_launches = spinorb_phase(torch, smi, dev)
+    # only the fp32 launches join the record's rows (see spinorb_phase)
+    comb_launches += so_launches["fp32"]["fused"]
+    c4_launches += so_launches["fp32"]["chunk"]
+    res_launches += so_launches["fp32"]["resident"]
+    say(11, "done", launches_fp32_in_record=json.dumps(so_launches["fp32"]),
+        launches_fp64_not_in_record=json.dumps(so_launches["fp64"]),
+        seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

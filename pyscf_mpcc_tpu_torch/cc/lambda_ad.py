@@ -65,12 +65,13 @@ def _leaves(*xs):
 
 
 def _lambda_step(l1, l2, t1, t2, eris, ntile=1, m1=None, m2=None,
-                 err_dtype=None):
+                 err_dtype=None, e_extra=None):
     """One Jacobi sweep of lambda^T (dR/dt) = -dE/dt.
 
     Returns (l1new, l2new, res1, res2, dl): the new multipliers, the
     Lambda-equation residuals (cast to err_dtype where given, the device
-    ring's error dtype) and the step norm as a device scalar.
+    ring's error dtype) and the step norm as a device scalar.  e_extra:
+    an energy term added to rccsd.energy (see _lagrangian_of_integrals).
 
     The vjp is taken segment by segment, one torch.autograd.grad call per
     rccsd.residual_segments piece.  The energy gradient seeds the
@@ -80,7 +81,11 @@ def _lambda_step(l1, l2, t1, t2, eris, ntile=1, m1=None, m2=None,
     eia, d2 = _denominators(eris, nocc)
     with torch.enable_grad():
         a1, a2 = _leaves(t1, t2)
-        j1, j2 = torch.autograd.grad(rccsd.energy(a1, a2, eris), (a1, a2))
+        e = rccsd.energy(a1, a2, eris)
+        if e_extra is not None:
+            e = e + e_extra(a1, a2, eris)
+        j1, j2 = torch.autograd.grad(e, (a1, a2))
+        del e
     # masks commute with the linear decomposition: masking the residual's
     # rows is masking the cotangent fed to every segment
     lb1 = _mask(m1, l1)
@@ -122,7 +127,7 @@ def _lambda_step(l1, l2, t1, t2, eris, ntile=1, m1=None, m2=None,
 def kernel(t1, t2, eris: RERIs, max_cycle=50, conv_tol=1e-7, diis_space=6,
            verbose=0, ntile=1, m1=None, m2=None, l1=None, l2=None,
            diis_backend="host", adiis=None, diis_file=None,
-           diis_err_dtype=None):
+           diis_err_dtype=None, e_extra=None):
     """Solve the Lambda equations.  Returns (converged, l1, l2).
 
     l1/l2 default to copies of t1/t2.  m1/m2: frozen-block masks (those
@@ -130,7 +135,8 @@ def kernel(t1, t2, eris: RERIs, max_cycle=50, conv_tol=1e-7, diis_space=6,
     values).  diis_backend='device' keeps the ring on the device
     (lib/device_diis.update_hostsolve); diis_err_dtype=torch.bfloat16
     halves its error ring.  adiis/diis_file (host ring): resume from a
-    preloaded DIIS object, spill the ring every cycle."""
+    preloaded DIIS object, spill the ring every cycle.  e_extra: an energy
+    term added to the CCSD energy (see _lagrangian_of_integrals)."""
     from pyscf_mpcc_tpu_torch.lib import logger as lg
     from pyscf_mpcc_tpu_torch.lib.diis import DIIS
     if diis_backend not in ("host", "device"):
@@ -156,7 +162,8 @@ def kernel(t1, t2, eris: RERIs, max_cycle=50, conv_tol=1e-7, diis_space=6,
     converged = False
     for it in range(max_cycle):
         l1new, l2new, res1, res2, dl = _lambda_step(
-            l1, l2, t1, t2, eris, ntile=ntile, m1=m1, m2=m2, err_dtype=edt)
+            l1, l2, t1, t2, eris, ntile=ntile, m1=m1, m2=m2, err_dtype=edt,
+            e_extra=e_extra)
         del l1, l2
         normt = float(dl)
         if diis_backend == "device":
@@ -213,9 +220,16 @@ def lagrangian_energy(t1, t2, l1, l2, eris: RERIs, ntile=1,
 # ---------------------------------------------------------------------------
 
 def _lagrangian_of_integrals(h_mo, eri_mo, dm_mo, t1, t2, l1, l2, nocc,
-                             ntile=1, m1=None, m2=None):
+                             ntile=1, m1=None, m2=None, e_extra=None):
     """Total electronic energy Lagrangian as a linear functional of the MO
-    integrals at fixed HF density, amplitudes and multipliers."""
+    integrals at fixed HF density, amplitudes and multipliers.
+    e_extra(t1, t2, eris): an energy term added to the correlation energy,
+    built from the integrals container it is given.  It is the one hook of
+    this module for that: the Lambda solvers (kernel, kernel_u) and both
+    RDM paths (make_rdm12, make_rdm12_u) take it, cc/ccsd_t_rdm and
+    cc/uccsd_t_rdm pass E(T).  Here the container is rebuilt from the
+    integrals, so E(T) follows them; it is homogeneous of degree one in
+    them, so the RDM energy identity still holds exactly."""
     nmo = h_mo.shape[0]
     j = torch.einsum("pqrs,rs->pq", eri_mo, dm_mo)
     k = torch.einsum("prqs,rs->pq", eri_mo, dm_mo)
@@ -236,14 +250,17 @@ def _lagrangian_of_integrals(h_mo, eri_mo, dm_mo, t1, t2, l1, l2, nocc,
         vvvv=eri_mo[v, v, v, v],
     )
     e_corr = rccsd.energy(t1, t2, eris)
+    if e_extra is not None:
+        e_corr = e_corr + e_extra(t1, t2, eris)
     r1, r2 = residual(t1, t2, eris, ntile=ntile, m1=m1, m2=m2)
     return e_hf + e_corr + (l1 * r1).sum() + (l2 * r2).sum()
 
 
 def make_rdm12(h_mo, eri_mo, t1, t2, l1, l2, nocc, ntile=1, m1=None,
-               m2=None):
+               m2=None, e_extra=None):
     """(rdm1, rdm2) in the MO basis, chemists' convention:
     E_elec = einsum('pq,pq', h, rdm1) + 1/2 einsum('pqrs,pqrs', eri, rdm2).
+    e_extra: see _lagrangian_of_integrals.
     """
     nmo = h_mo.shape[0]
     dm_mo = torch.zeros((nmo, nmo), dtype=h_mo.dtype, device=h_mo.device)
@@ -251,7 +268,7 @@ def make_rdm12(h_mo, eri_mo, t1, t2, l1, l2, nocc, ntile=1, m1=None,
     with torch.enable_grad():
         h, g = _leaves(h_mo, eri_mo)
         lag = _lagrangian_of_integrals(h, g, dm_mo, t1, t2, l1, l2, nocc,
-                                       ntile, m1, m2)
+                                       ntile, m1, m2, e_extra)
         dh, dg = torch.autograd.grad(lag, (h, g))
     rdm1 = 0.5 * (dh + dh.T)
     rdm2 = 2.0 * dg
@@ -302,15 +319,20 @@ def lagrangian_energy_u(t1, t2, l1, l2, eris_u):
     return e + _vdots((*l1, *l2), (*r1, *r2))
 
 
-def _lambda_step_u(l1, l2, t1, t2, eris_u, m=None):
+def _lambda_step_u(l1, l2, t1, t2, eris_u, m=None, e_extra=None):
     """One Jacobi sweep of lambda^T (dR/dt) = -dE/dt: the energy gradient
-    plus one vjp of the residual (``torch.autograd.grad``).  Returns
+    plus one vjp of the residual (``torch.autograd.grad``).  e_extra: an
+    energy term added to uccsd.energy (see _lagrangian_of_integrals).  Returns
     (l1new, l2new, res1, res2)."""
     from pyscf_mpcc_tpu_torch.cc import uccsd as umod
     d1, d2 = _u_denoms(eris_u)
     with torch.enable_grad():
         a = _leaves(*t1, *t2)
-        de = torch.autograd.grad(umod.energy(a[:2], a[2:], eris_u), a)
+        e = umod.energy(a[:2], a[2:], eris_u)
+        if e_extra is not None:
+            e = e + e_extra(a[:2], a[2:], eris_u)
+        de = torch.autograd.grad(e, a)
+        del e
     with torch.enable_grad():
         a = _leaves(*t1, *t2)
         r1, r2 = residual_u(a[:2], a[2:], eris_u, m)
@@ -332,14 +354,15 @@ def _lambda_step_u(l1, l2, t1, t2, eris_u, m=None):
 
 
 def kernel_u(t1, t2, eris_u, max_cycle=50, conv_tol=1e-7, diis_space=6,
-             verbose=0, masks=None, diis_backend="host"):
+             verbose=0, masks=None, diis_backend="host", e_extra=None):
     """Unrestricted Lambda solver.  Returns (converged, l1, l2).
 
     l1/l2 start at copies of t1/t2.  masks: (m1a, m1b, m2aa, m2ab, m2bb)
     frozen-block masks (those equations dropped, their multipliers held).
     diis_backend='device' keeps the ring on the device
     (lib/device_diis.update_hostsolve): the five multiplier blocks never
-    leave it."""
+    leave it.  e_extra: an energy term added to the UCCSD energy (see
+    _lagrangian_of_integrals)."""
     from pyscf_mpcc_tpu_torch.cc import uccsd as umod
     from pyscf_mpcc_tpu_torch.lib import logger as lg
     from pyscf_mpcc_tpu_torch.lib.diis import DIIS
@@ -358,7 +381,8 @@ def kernel_u(t1, t2, eris_u, max_cycle=50, conv_tol=1e-7, diis_space=6,
         diis = DIIS(space=diis_space)
     converged = False
     for it in range(max_cycle):
-        l1n, l2n, r1, r2 = _lambda_step_u(l1, l2, t1, t2, eris_u, masks)
+        l1n, l2n, r1, r2 = _lambda_step_u(l1, l2, t1, t2, eris_u, masks,
+                                          e_extra)
         del l1, l2
         resn = sum(float(torch.linalg.norm(x)) for x in (*r1, *r2))
         vec_new = umod.amplitudes_to_vector(l1n, l2n)
@@ -405,9 +429,10 @@ def _u_fock_of_integrals(h_a, h_b, g_aa, g_ab, g_bb, nocca, noccb):
 
 
 def _u_lagrangian_of_integrals(h_a, h_b, g_aa, g_ab, g_bb, t1, t2, l1, l2,
-                               nocca, noccb):
+                               nocca, noccb, e_extra=None):
     """UHF-CCSD total-energy Lagrangian as a linear functional of the
-    per-spin MO integrals (materialized blocks)."""
+    per-spin MO integrals (materialized blocks).  e_extra: see
+    _lagrangian_of_integrals."""
     from pyscf_mpcc_tpu_torch.cc import uccsd as umod
     nmoa, nmob = h_a.shape[0], h_b.shape[0]
     fa, fb, e_hf = _u_fock_of_integrals(h_a, h_b, g_aa, g_ab, g_bb,
@@ -433,23 +458,26 @@ def _u_lagrangian_of_integrals(h_a, h_b, g_aa, g_ab, g_bb, t1, t2, l1, l2,
         vvVV=g_ab[va, va, vb, vb],
     )
     e_corr = umod.energy(t1, t2, eris)
+    if e_extra is not None:
+        e_corr = e_corr + e_extra(t1, t2, eris)
     r1, r2 = residual_u(t1, t2, eris)
     return e_hf + e_corr + _vdots((*l1, *l2), (*r1, *r2))
 
 
 def make_rdm12_u(h_a, h_b, g_aa, g_ab, g_bb, t1, t2, l1, l2, nocca,
-                 noccb):
+                 noccb, e_extra=None):
     """UCCSD response densities ((dm1a, dm1b), (dm2aa, dm2ab, dm2bb)) in
     the per-spin MO bases, chemists' convention, satisfying
 
         E_elec = h_a.dm1a + h_b.dm1b + 1/2 g_aa.dm2aa + 1/2 g_bb.dm2bb
                  + g_ab.dm2ab
 
-    exactly (the Lagrangian is linear in every integral tensor)."""
+    exactly (the Lagrangian is linear in every integral tensor).
+    e_extra: see _lagrangian_of_integrals."""
     with torch.enable_grad():
         ints = _leaves(h_a, h_b, g_aa, g_ab, g_bb)
         lag = _u_lagrangian_of_integrals(*ints, t1, t2, l1, l2, nocca,
-                                         noccb)
+                                         noccb, e_extra)
         dha, dhb, dgaa, dgab, dgbb = torch.autograd.grad(lag, ints)
 
     def sym4(x):

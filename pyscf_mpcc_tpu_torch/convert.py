@@ -7,7 +7,9 @@ and hand the same arrays to both packages:
               for k, v in jax_eris._asdict().items()}
     eris = eris_from_numpy(fields, device, dtype)
 
-and ``ueris_from_numpy`` does the same for the unrestricted container.
+and ``ueris_from_numpy`` does the same for the unrestricted container,
+``geris_from_numpy`` for the spin-orbital one (the nine antisymmetrized
+blocks and the spinor Fock of cc/gccsd.GERIs).
 """
 
 from __future__ import annotations
@@ -57,6 +59,17 @@ def ueris_from_numpy(fields, device, dtype=None):
         else:
             out[k] = None if v is None else _tensor(v, device, dtype)
     return UERIs(**out)
+
+
+def geris_from_numpy(blocks, fock, nocc, device, dtype=None):
+    """The port's spin-orbital GERIs from ``{block: np.ndarray}`` (the
+    JAX package's GERIs.b as numpy), the spinor Fock and nocc.  Unknown or
+    missing block names raise."""
+    from pyscf_mpcc_tpu_torch.cc.gccsd import GERIs
+    if set(blocks) != set(GERIs.BLOCKS):
+        raise ValueError(f"GERIs takes the blocks {GERIs.BLOCKS}, got "
+                         f"{sorted(blocks)}")
+    return GERIs(blocks, fock, nocc, device=device, dtype=dtype)
 
 
 def amps_from_numpy(t1, t2, device, dtype=None):

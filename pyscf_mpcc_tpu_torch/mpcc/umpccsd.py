@@ -323,10 +323,45 @@ def kernel_pert_df(eris, B, h, act_hole, act_particle, idx_s, idx_d,
     return converged, e, t1, t2, canon
 
 
-def kernel_pert_triples(*args, **kwargs):
-    """UMPCC with coupled active-space T3 on the spin-orbital NumPy engine
-    (the JAX package's cc/gccsdt_slow over gccsd_slow.eris_from_scf): not
-    ported; :func:`kernel_pert_df` is the production path."""
-    raise NotImplementedError(
-        "umpccsd.kernel_pert_triples runs the spin-orbital NumPy engine, "
-        "ROADMAP A15c, not ported yet; kernel_pert_df is the DF path")
+def kernel_pert_triples(mf, act_hole, act_particle, idx_s, idx_d,
+                        model="ccsdt-3", max_cycle=100, conv_tol=1e-9,
+                        conv_tol_normt=1e-7, verbose=0, t1=None, t2=None):
+    """UMPCC with coupled active-space T3 (the reference's pert_triples
+    path): the CCSD equations with the MP-CC block freeze plus a T3
+    restricted to the all-active triples block, solved iteratively and fed
+    back into the t1/t2 residuals, with its own DIIS history.  It runs on
+    the host spin-orbital NumPy engine (cc/gccsdt_slow over
+    cc/gccsd_slow.eris_from_scf), as in the JAX package, which fits the
+    small active spaces the method targets; :func:`kernel_pert_df` is the
+    DF path on the device.
+
+    act_hole/act_particle: (alpha_list, beta_list) spatial indices;
+    idx_s/idx_d: the frozen-block lists (the reference's get_index_tuples
+    enumeration).  Returns (e_corr, t1_so, t2_so, t3_so, converged), numpy
+    arrays."""
+    from pyscf_mpcc_tpu_torch.cc import eom_slow, gccsd_slow, gccsdt_slow
+    so = gccsd_slow.eris_from_scf(mf)
+    h_so = eom_slow.h_so_from_eris(so)
+    na, nb = mf.mol.nelec
+    nmo = np.asarray(mf.mo_coeff).shape[-1]
+    va, vb = nmo - na, nmo - nb
+    if idx_s and not isinstance(idx_s[0], (list, tuple, np.ndarray)):
+        idx_s = (idx_s, idx_s)
+    if idx_d and not isinstance(idx_d[0], (list, tuple, np.ndarray)):
+        idx_d = (idx_d, idx_d, idx_d)
+    if not idx_s:
+        idx_s = ([], [])
+    if not idx_d:
+        idx_d = ([], [], [])
+    masks = frozen_masks_u(act_hole, act_particle, (na, nb), (va, vb),
+                           idx_s, idx_d, device=torch.device("cpu"))
+    M1, M2 = (m.numpy() for m in
+              _masks_to_spin_orbital(masks, (na, nb), (va, vb)))
+    (aha, ahb), (apa, apb) = act_hole, act_particle
+    act_hole_so = list(aha) + [na + int(i) for i in ahb]
+    act_particle_so = list(apa) + [va + int(p) for p in apb]
+    return gccsdt_slow.kernel(
+        so, h_so, act_hole=act_hole_so, act_particle=act_particle_so,
+        model=model, max_cycle=max_cycle, conv_tol=conv_tol,
+        conv_tol_normt=conv_tol_normt, verbose=verbose,
+        t1=t1, t2=t2, freeze_mask1=M1, freeze_mask2=M2)

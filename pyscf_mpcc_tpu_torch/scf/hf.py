@@ -7,7 +7,8 @@ density-fitted J/K builders and the atomic guess): that package's
 be imported where jax is absent.  Host NumPy in fp64, as in the JAX
 package: SCF is set-up cost, not the device hot path.  ``diis_scheme``
 takes the energy-DIIS schemes of ``scf/diis.py`` (a host copy too).  The
-device DF J/K offload is ROADMAP A18.  ``RHF(mol).as_scanner()`` and
+density-fitted J/K takes a device option (``_JKDF(b3c, device=...)``),
+off by default as in the JAX package.  ``RHF(mol).as_scanner()`` and
 ``UHF(mol).as_scanner()`` are the geometry scanner (SCFScanner).
 """
 
@@ -39,10 +40,22 @@ class _JKDF:
 
     K uses the occupied-half-transform algorithm, K = (B C_o)(B C_o)^T with
     dm = 2 C_o C_o^T (Cholesky factor of dm in general), which is
-    O(naux nao^2 nocc) instead of O(naux nao^3)."""
+    O(naux nao^2 nocc) instead of O(naux nao^3).
 
-    def __init__(self, b3c):
+    ``device``: False (the default) contracts on the host in fp64; True
+    runs the four contractions with torch on the card, a torch.device on
+    that device, in ``dtype`` (lib/device.resolve: fp32 on the card, fp64
+    on the CPU).  J and K come back as fp64 NumPy either way."""
+
+    def __init__(self, b3c, device=False, dtype=None):
         self.B = np.asarray(b3c)
+        self.device = device
+        if device is not False:
+            import torch
+
+            from pyscf_mpcc_tpu_torch.lib import device as _dev
+            dev, dt = _dev.resolve(None if device is True else device, dtype)
+            self._Bd = torch.tensor(self.B, device=dev, dtype=dt)
 
     def _halfk(self, dm):
         # dm (symmetric PSD up to noise) = sum_i w_i v_i v_i^T; use eigh
@@ -55,12 +68,26 @@ class _JKDF:
             js, ks = zip(*(self.get_jk(d) for d in dm))
             return np.array(js), np.array(ks)
         co = self._halfk(dm)
+        if self.device is not False:
+            return self._get_jk_device(dm, co)
         B = self.B
         rho = np.einsum("Lpq,pq->L", B, dm, optimize=True)
         j = np.einsum("Lpq,L->pq", B, rho, optimize=True)
         lo = np.einsum("Lpr,ri->Lpi", B, co, optimize=True)
         k = np.einsum("Lpi,Lqi->pq", lo, lo, optimize=True)
         return j, k
+
+    def _get_jk_device(self, dm, co):
+        import torch
+        Bd = self._Bd
+        dmd = torch.tensor(dm, device=Bd.device, dtype=Bd.dtype)
+        cod = torch.tensor(co, device=Bd.device, dtype=Bd.dtype)
+        rho = torch.einsum("Lpq,pq->L", Bd, dmd)
+        j = torch.einsum("Lpq,L->pq", Bd, rho)
+        lo = torch.einsum("Lpr,ri->Lpi", Bd, cod)
+        k = torch.einsum("Lpi,Lqi->pq", lo, lo)
+        return (j.to(torch.float64).cpu().numpy(),
+                k.to(torch.float64).cpu().numpy())
 
 
 def _frac_occ(mo_energy, nelec, degen_tol=1e-5):

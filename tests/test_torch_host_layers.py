@@ -1,6 +1,8 @@
 """The port's copies of the JAX package's host layers (gto, df, lib.diis,
 lib.chkfile, lib.logger, lib.stream, config, lo.pm, lo.avas, mpcc.masks,
-scf.diis) against the originals.
+scf.diis, and the spin-orbital layer cc.addons, scf.ghf, cc.gccsd_slow,
+ci.fci_slow, cc.eom_slow, cc.gccsdt1_slow, cc.gccsdt_slow, mp.mp2f12)
+against the originals.
 
 The port imports nothing of pyscf_mpcc_tpu, so it carries these NumPy/C++
 layers itself; they must stay the same functions.  On H2O/cc-pVDZ the
@@ -9,7 +11,12 @@ a Pipek-Mezey localization, the AVAS selection, EDIIS/ADIIS extrapolations agree
 inputs; only the native engine's thread order may move the last bits), a
 chk file written by either chkfile loads bit for bit in the other, the
 MP-CC block masks are identical arrays, and the vendored basis library is
-byte-identical.
+byte-identical.  The spin-orbital layer's eight copies are the originals'
+source with the package name in their imports changed and a line added to
+their docstrings; on linear H4/sto-3g the spin-orbital integrals, the
+spin-orbital CCSD, FCI, the EOM Hamiltonian, CCSDT-1 and CCSDT agree to
+1e-12 (GHF and MP2-F12 are held to the originals in test_torch_ghf.py and
+test_torch_mp2f12.py).
 """
 
 import filecmp
@@ -240,3 +247,74 @@ def test_scf_energy_diis_matches(scheme):
             o.push(e, dm + dm.transpose(0, 2, 1), f + f.transpose(0, 2, 1))
         np.testing.assert_allclose(obj.extrapolate(), jobj.extrapolate(),
                                    rtol=0, atol=TOL)
+
+
+SPINORB_COPIES = ("cc/addons.py", "scf/ghf.py", "cc/gccsd_slow.py",
+                  "ci/fci_slow.py", "cc/eom_slow.py", "cc/gccsdt1_slow.py",
+                  "cc/gccsdt_slow.py", "mp/mp2f12.py")
+
+
+@pytest.mark.parametrize("path", SPINORB_COPIES)
+def test_spinorb_copy_is_the_original_source(path):
+    src = open(os.path.join(ROOT, "pyscf_mpcc_tpu", path)).read()
+    dst = open(os.path.join(ROOT, "pyscf_mpcc_tpu_torch", path)).read()
+    note = (f"\nA host copy of the JAX package's {path} (NumPy, its imports "
+            "pointed at\nthe port).\n")
+    assert note in dst
+    want = (src.replace("pyscf_mpcc_tpu.", "pyscf_mpcc_tpu_torch.")
+            .replace("from pyscf_mpcc_tpu import",
+                     "from pyscf_mpcc_tpu_torch import"))
+    assert dst.replace(note, "") == want
+    assert "jax" not in dst.replace("JAX package", "")
+
+
+@pytest.fixture(scope="module")
+def h4_so():
+    from pyscf_mpcc_tpu import scf as jscf
+    from pyscf_mpcc_tpu.cc import gccsd_slow as jgs
+    from pyscf_mpcc_tpu_torch import scf
+    from pyscf_mpcc_tpu_torch.cc import gccsd_slow
+    atom = "H 0 0 0; H 0 0 0.9; H 0 0 1.8; H 0 0 2.7"
+    out = []
+    for g, s, gs in ((gto, scf, gccsd_slow), (jgto, jscf, jgs)):
+        mf = s.RHF(g.M(atom=atom, basis="sto-3g"))
+        mf.conv_tol = 1e-13
+        mf.kernel()
+        out.append(mf)
+    out[0].mo_coeff = np.asarray(out[1].mo_coeff)
+    return (gccsd_slow.eris_from_scf(out[0]), jgs.eris_from_scf(out[1]))
+
+
+def test_spinorb_oracles_match(h4_so):
+    from pyscf_mpcc_tpu.cc import addons as jaddons
+    from pyscf_mpcc_tpu.cc import eom_slow as jeom
+    from pyscf_mpcc_tpu.cc import gccsd_slow as jgs
+    from pyscf_mpcc_tpu.cc import gccsdt1_slow as jt1
+    from pyscf_mpcc_tpu.cc import gccsdt_slow as jt
+    from pyscf_mpcc_tpu.ci import fci_slow as jfci
+    from pyscf_mpcc_tpu_torch.cc import (addons, eom_slow, gccsd_slow,
+                                         gccsdt1_slow, gccsdt_slow)
+    from pyscf_mpcc_tpu_torch.ci import fci_slow
+    so, jso = h4_so
+    np.testing.assert_allclose(so.ints, jso.ints, rtol=0, atol=TOL)
+    np.testing.assert_allclose(so.fock, jso.fock, rtol=0, atol=TOL)
+    h, jh = eom_slow.h_so_from_eris(so), jeom.h_so_from_eris(jso)
+    np.testing.assert_allclose(h, jh, rtol=0, atol=TOL)
+    kw = dict(conv_tol=1e-11, conv_tol_normt=1e-9)
+    e, t1, t2, _ = gccsd_slow.kernel(so, **kw)
+    assert abs(e - jgs.kernel(jso, **kw)[0]) < TOL
+    e_fci = fci_slow.FCI(h, so.ints, so.nocc, so.nso).kernel()[0]
+    np.testing.assert_allclose(
+        e_fci, jfci.FCI(jh, jso.ints, jso.nocc, jso.nso).kernel()[0],
+        rtol=0, atol=TOL)
+    act = dict(act_hole=[2, 3], act_particle=[0, 1], **kw)
+    assert abs(gccsdt1_slow.kernel(so, **act)[0]
+               - jt1.kernel(jso, **act)[0]) < TOL
+    assert abs(gccsdt_slow.kernel(so, h, **act)[0]
+               - jt.kernel(jso, jh, **act)[0]) < TOL
+    rng = np.random.default_rng(1)
+    r1, r2 = rng.standard_normal((2, 3)), rng.standard_normal((2, 2, 3, 3))
+    r2 = r2 + r2.transpose(1, 0, 3, 2)
+    for f, jf, x in ((addons.spatial2spin_t1, jaddons.spatial2spin_t1, r1),
+                     (addons.spatial2spin_t2, jaddons.spatial2spin_t2, r2)):
+        np.testing.assert_array_equal(f(x), jf(x))

@@ -37,11 +37,15 @@ PKG = os.path.join(ROOT, "pyscf_mpcc_tpu_torch")
 # modules of the JAX package the port may import: none (its host layers
 # are copies inside the port)
 ALLOWED = ()
-# the modules of the Lambda and open-shell slices: both import checks
-# must reach them
+# the modules of the Lambda, open-shell and spin-orbital slices: both
+# import checks must reach them
 LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
                 "cc.spinsum", "cc.uccsd", "cc.uccsd_t", "mp.ump2",
-                "mp.dfump2", "scf.diis")
+                "mp.dfump2", "scf.diis", "cc.ccsd_t_rdm", "cc.uccsd_t_rdm",
+                "cc.gccsd", "cc.qcisd", "cc.bccd", "cc.gccsd_t_rdm",
+                "cc.addons", "scf.ghf", "cc.gccsd_slow", "ci.fci_slow",
+                "cc.eom_slow", "cc.gccsdt1_slow", "cc.gccsdt_slow",
+                "mp.mp2f12", "mp.gmp2", "mp.dfgmp2", "utils.profiling")
 
 
 def test_df_slice_matches_jax_driver(monkeypatch):
@@ -162,3 +166,37 @@ def test_entry_points_default_to_cuda():
             resolve(None)
     assert resolve(torch.device("cpu")) == (torch.device("cpu"),
                                             torch.float64)
+
+
+def _spinorb_entry_points():
+    from pyscf_mpcc_tpu_torch import gto
+    from pyscf_mpcc_tpu_torch.cc import bccd, gccsd, qcisd
+    from pyscf_mpcc_tpu_torch.mp import dfgmp2, gmp2
+    from pyscf_mpcc_tpu_torch.scf import convert_to_ghf
+    from pyscf_mpcc_tpu_torch.scf.hf import _JKDF
+    mf = RHF(gto.M(atom="H 0 0 0; H 0 0 0.74", basis="sto-3g")).run()
+    blocks = {k: np.zeros((1, 1, 1, 1)) for k in gccsd.GERIs.BLOCKS}
+    return {
+        "GERIs": lambda: gccsd.GERIs(blocks, np.eye(2), 1),
+        "GCCSD": lambda: gccsd.GCCSD(mf),
+        "make_eris_ghf": lambda: gccsd.make_eris_ghf(convert_to_ghf(mf)),
+        "QCISD": lambda: qcisd.QCISD(mf),
+        "make_geris_rhf": lambda: qcisd.make_geris_rhf(mf),
+        "bccd": lambda: bccd.kernel(mf, np.zeros((2,) * 4)),
+        "GMP2": lambda: gmp2.GMP2(mf),
+        "DFGMP2": lambda: dfgmp2.DFGMP2(mf),
+        "spinorb_Lov": lambda: dfgmp2.spinorb_Lov(
+            np.zeros((3, 2, 2)), np.eye(2), np.eye(2), (1, 1)),
+        "JKDF": lambda: _JKDF(np.zeros((3, 2, 2)), device=True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_spinorb_entry_points()))
+def test_spinorb_entry_points_default_to_cuda(name):
+    """The spin-orbital and (T)-response slice's device entry points
+    resolve a missing device to the card (lib/device.resolve) and raise
+    where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is present; chip_smoke.py phase 11 runs these")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _spinorb_entry_points()[name]()

@@ -182,8 +182,21 @@ def test_lambda_kernel_matches_jax(ref, eris):
 
 
 def test_kernel_pert_triples_names_a15c():
-    with pytest.raises(NotImplementedError, match="A15c"):
-        umpccsd.kernel_pert_triples(None, AH, AP, IDX_S, IDX_D)
+    """kernel_pert_triples (ROADMAP A15c) was a stub that raised; it runs
+    now (tests/test_torch_pert_triples.py holds it to the JAX package).
+    Here its empty-triples, nothing-frozen limit on O2 triplet/sto-3g is
+    the host spin-orbital CCSD, 1e-9 Ha."""
+    from pyscf_mpcc_tpu_torch import gto, scf
+    from pyscf_mpcc_tpu_torch.cc import gccsd_slow
+    mf = scf.UHF(gto.M(atom="O 0 0 0; O 0 0 1.21", basis="sto-3g", spin=2))
+    mf.conv_tol = 1e-12
+    mf.kernel()
+    e, *_, conv = umpccsd.kernel_pert_triples(
+        mf, ([], []), ([], []), [], [], model="ccsdt", conv_tol=1e-11,
+        conv_tol_normt=1e-9)
+    e_cc = gccsd_slow.kernel(gccsd_slow.eris_from_scf(mf), conv_tol=1e-11,
+                             conv_tol_normt=1e-9)[0]
+    assert conv and abs(e - e_cc) < 1e-9
 
 
 def test_package_exports_open_shell_modules():
