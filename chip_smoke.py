@@ -130,6 +130,24 @@ each, started together), then runs:
      against engine='xla', BCCD(T) all-electron (tile 8) likewise, the
      restricted Lambda(T) cycles and make_rdm12 (s, peak, the trace and
      Euler identities), DF-GMP2.
+ 12. EOM-CCSD, MOM-GF-CCSD and the host-streamed Lvv (eom_stream_phase;
+     no hand kernel on these paths): (a) fp64 on the card: the
+     H2O/cc-pVDZ IP, EA and EE pins through the driver methods (and the
+     methods at their defaults), H2/6-31g EE against the exact singlet
+     spectrum, OH/sto-3g U IP/EA per spin against the host eom_slow
+     oracle, eomsf_ccsd and the restricted triplet against the U EE root
+     of H2O/sto-3g, MOM-GF poles against Davidson IP/EA and its moment
+     conservation; (b) the H2O/cc-pVDZ roots in fp32 against fp64; (c)
+     benzene/cc-pVDZ (nocc 21, nvir 93) through examples/eom_benzene in
+     fp32: EE (4), IP (3), EA (3) against the reference's pins, with
+     Davidson cycles, sigmas, s per sigma, the host Davidson's share and
+     peaks, the host RHF and ERI apart; (d) one EE sigma at the (H2O)8
+     shape (s, in sweeps, and peak at the EOM planner's ntile); (e) the
+     streamed ladder there at ntile 8 (a seeded t1 of 1e-2): one sweep
+     and one Lambda step against resident (gaps, s, peaks: the streamed peak must sit below
+     the resident one by Lvv less three tiles), the bytes moved host ->
+     device a sweep, the rate on the same pinned buffer and the copy time
+     the compute does not hide.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe and phase 11's fp32 ones
@@ -344,6 +362,33 @@ E_DFGMP2 = {"sto-3g": -0.035490285389463326, "631g": -0.12877271226149506}
 # examples/w8_ccsd_pipeline.py (testing.W4_GEOM[:6]); nao 116, two O 1s
 # frozen: restricted (nocc, nvir) (8, 106), spinor (16, 212)
 W2_BASIS, NPROBE_SO = "cc-pvtz", 16
+# phase 12: H2O/cc-pVDZ at the geometry of the JAX package's
+# tests/test_eom_ip_ea.py and its pins (docs/reference_pins.json
+# h2o_ccpvdz: the reference's eom_rccsd on integrals injected from the
+# JAX package), its limits there (IP/EA 1e-7, EE 5e-7 Ha)
+EOM_H2O = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
+EOM_PINS = {"e_corr": -0.2133274273544366,
+            "ip": [0.433564372260947, 0.5186599930972678,
+                   0.6784704515875678],
+            "ea": [0.16741950216613447, 0.24029462761583625,
+                   0.5101075032617646],
+            "ee": [0.3006258759956825, 0.37594403988325975,
+                   0.397748269999603]}
+# the driver methods at their default Davidson tolerances (residual norm
+# 1e-7 IP/EA, 1e-6 EE) against the tight roots
+ATOL_EOM_DEFAULTS = 1e-5
+# fp32 EOM: CCSD and Davidson at the JAX benzene example's tolerances; the
+# fp32 sigma rounds at ~1e-7 of |A| (a few Ha) and the amplitudes are good
+# to ~3e-6, so the roots sit ~1e-6 from fp64: 2e-5 Ha leaves a margin
+EOM_FP32_CCSD = dict(conv_tol=1e-8, conv_tol_normt=3e-6, max_cycle=100)
+EOM_FP32_TOL, ATOL_EOM_FP32 = 1e-5, 2e-5
+# benzene/cc-pVDZ in fp32 against benzene_ccpvdz: twice the pass bar of
+# the JAX package's examples/eom_benzene_chip.py (1e-3 eV)
+ATOL_BENZENE_EV = 2e-3
+# the streamed ladder at the (H2O)8 shape: row tiles a virtual axis, and
+# streamed against resident in fp32 (the same products in other GEMM
+# blockings; relative norm of t2 and of the Lambda residual)
+NTILE_STREAM, RTOL_STREAM = 8, 1e-5
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
@@ -1892,6 +1937,296 @@ def spinorb_phase(torch, smi, dev):
     return {"fp32": launches[f32], "fp64": launches[f64]}
 
 
+def eom_stream_phase(torch, smi, dev, sweep_sec):
+    """Phase 12: EOM-CCSD, MOM-GF-CCSD and the host-streamed Lvv on the
+    card (no hand kernel on these paths).  (a) fp64 pins: H2O/cc-pVDZ IP,
+    EA and EE through the driver methods (tight, and at their defaults),
+    H2/6-31g EE against the exact singlet spectrum, the U IP/EA of
+    OH/sto-3g against the host eom_slow oracle, eomsf_ccsd and the
+    restricted triplet against the U EE root of H2O/sto-3g, MOM-GF poles
+    against Davidson IP/EA; (b) the H2O/cc-pVDZ roots in fp32 against
+    fp64; (c) benzene/cc-pVDZ through examples/eom_benzene.run in fp32
+    against the reference's pins; (d) one EE sigma at the (H2O)8 shape;
+    (e) the streamed ladder at the (H2O)8 shape against the resident one:
+    one sweep and one Lambda step, peaks, bytes moved and the host ->
+    device rate.  sweep_sec: phase 4's sweep, the unit of (d)."""
+    import numpy as np
+
+    from pyscf_mpcc_tpu_torch import ao2mo, gto, testing
+    from pyscf_mpcc_tpu_torch import scf as pscf
+    from pyscf_mpcc_tpu_torch.cc import (eom, eom_slow, gccsd_slow,
+                                         lambda_ad, rccsd)
+    from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+    from pyscf_mpcc_tpu_torch.cc.momgfccsd import (MomGFCCSD,
+                                                   build_hole_moments)
+    from pyscf_mpcc_tpu_torch.examples import eom_benzene
+    from pyscf_mpcc_tpu_torch.lib import memory
+    from pyscf_mpcc_tpu_torch.lib.hoststore import HostStore
+
+    f64, f32 = torch.float64, torch.float32
+    tight = dict(conv_tol=1e-11, conv_tol_normt=1e-9, max_cycle=100)
+
+    def rhf(atom, basis, **kw):
+        mf = pscf.RHF(gto.M(atom=atom, basis=basis, **kw))
+        mf.conv_tol, mf.conv_tol_grad = 1e-13, 1e-10
+        return mf.run()
+
+    def check(name, got, want, atol):
+        err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+        if not err < atol:
+            raise RuntimeError(f"{name}: {got} against {want}, |d| {err} "
+                               f"(limit {atol})")
+        return err
+
+    # (a) H2O/cc-pVDZ pins through the driver methods, fp64 on the card
+    t0 = time.perf_counter()
+    mf = rhf(EOM_H2O, "cc-pvdz", unit="angstrom")
+    roots, errs = {}, {}
+    for dt in (f64, f32):
+        cc = CCSD(mf, device=dev, dtype=dt).set(
+            **(tight if dt == f64 else EOM_FP32_CCSD))
+        cc.run()
+        if not cc.converged:
+            raise RuntimeError(f"H2O/cc-pVDZ CCSD ({dt}) did not converge")
+        tol = 1e-9 if dt == f64 else EOM_FP32_TOL
+        roots[dt] = {"ip": cc.ipccsd(nroots=3, tol=tol),
+                     "ea": cc.eaccsd(nroots=3, tol=tol),
+                     "ee": cc.eeccsd(nroots=3, tol=tol)}
+        if dt == f64:
+            errs["e_corr"] = check("E_corr", cc.e_corr, EOM_PINS["e_corr"],
+                                   1e-8)
+            for k, lim in (("ip", 1e-7), ("ea", 1e-7), ("ee", 5e-7)):
+                errs[k] = check(f"{k} pins", roots[dt][k], EOM_PINS[k], lim)
+            # the driver methods at their defaults, same amplitudes
+            dflt = {"ip": cc.ipccsd(), "ea": cc.eaccsd(), "ee": cc.eeccsd()}
+            d_dflt = max(check(f"{k} at defaults", v, roots[dt][k],
+                               ATOL_EOM_DEFAULTS) for k, v in dflt.items())
+        del cc
+    say(12, "h2o/cc-pvdz eom pins fp64 ok", dtype="float64",
+        ip=json.dumps(list(roots[f64]["ip"])),
+        ea=json.dumps(list(roots[f64]["ea"])),
+        ee=json.dumps(list(roots[f64]["ee"])),
+        errs=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+        atol="ip/ea 1e-7, ee 5e-7", defaults_max_d=f"{d_dflt:.2e}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    # (b) fp32 against fp64, the same roots
+    gap = max(check(f"{k} fp32 vs fp64", roots[f32][k], roots[f64][k],
+                    ATOL_EOM_FP32) for k in ("ip", "ea", "ee"))
+    say(12, "h2o/cc-pvdz eom fp32 vs fp64 ok", worst_gap=f"{gap:.2e}",
+        atol=ATOL_EOM_FP32, davidson_tol_fp32=EOM_FP32_TOL)
+
+    # H2/6-31g: CCSD is FCI, the EE roots are the exact singlet gaps
+    t0 = time.perf_counter()
+    mf = rhf("H 0 0 0; H 0 0 0.74", "6-31g")
+    cc = CCSD(mf, device=dev, dtype=f64).set(conv_tol=1e-12,
+                                            conv_tol_normt=1e-11).run()
+    mo = np.asarray(mf.mo_coeff)
+    h = mo.T @ mf.get_hcore() @ mo
+    g = ao2mo.full(torch.tensor(gto.intor_eri(mf.mol)),
+                   torch.tensor(mo)).numpy()
+    pairs = [(p, q) for p in range(len(h)) for q in range(p, len(h))]
+
+    def me(p, q, r, s):
+        return h[p, r] * (q == s) + h[q, s] * (p == r) + g[p, r, q, s]
+
+    H = np.array([[0.5 * (me(p, q, r, s) + me(p, q, s, r) + me(q, p, r, s)
+                          + me(q, p, s, r))
+                   / ((np.sqrt(2.0) if p == q else 1.0)
+                      * (np.sqrt(2.0) if r == s else 1.0))
+                   for r, s in pairs] for p, q in pairs])
+    fci = np.linalg.eigvalsh(H)
+    e_ee = cc.eeccsd(nroots=2, tol=1e-7)
+    d_h2 = check("H2 EE vs FCI", e_ee, fci[1:3] - fci[0], 1e-6)
+    # OH/sto-3g: U IP/EA per spin against the host eom_slow oracle
+    umf = pscf.UHF(gto.M(atom="O 0 0 0; H 0 0 0.97", basis="sto-3g",
+                         spin=1))
+    umf.conv_tol, umf.conv_tol_grad = 1e-13, 1e-10
+    umf.kernel()
+    so = gccsd_slow.eris_from_scf(umf)
+    e_so, T1, T2, conv = gccsd_slow.kernel(so, conv_tol=1e-12,
+                                           conv_tol_normt=1e-11,
+                                           max_cycle=200)
+    h_so = eom_slow.h_so_from_eris(so)
+    e_cc = float(umf.e_tot - umf.mol.energy_nuc() + e_so)
+    ucc = CCSD(umf, device=dev, dtype=f64).set(conv_tol=1e-12,
+                                              conv_tol_normt=1e-10,
+                                              max_cycle=200).run()
+    if not (conv and ucc.converged):
+        raise RuntimeError("OH/sto-3g GCCSD or UCCSD did not converge")
+    na, _ = umf.mol.nelec
+    d_u = 0.0
+    for spin, n_ip, n_ea in (("a", na - 1, na + 1), ("b", na, na)):
+        kw = dict(nroots=2, e_ccsd_tot=e_cc, spins=so.spins)
+        ref_ip = eom_slow.ipccsd(h_so, so.ints, T1, T2, so.nocc, so.nso,
+                                 nalpha=n_ip, **kw)[:2]
+        ref_ea = eom_slow.eaccsd(h_so, so.ints, T1, T2, so.nocc, so.nso,
+                                 nalpha=n_ea, **kw)[:2]
+        d_u = max(d_u, check(f"U IP {spin}", ucc.ipccsd(nroots=2, tol=1e-9,
+                                                         spin=spin),
+                             ref_ip, 1e-8),
+                  check(f"U EA {spin}", ucc.eaccsd(nroots=2, tol=1e-9,
+                                                   spin=spin), ref_ea, 1e-8))
+    # H2O/sto-3g: the spin-flip root (Ms = -1) and the restricted triplet
+    # are the lowest (Ms = 0 triplet) root of the spin-blocked U EE
+    mf = rhf(EOM_H2O, "sto-3g", unit="angstrom")
+    cc = CCSD(mf, device=dev, dtype=f64).set(**tight).run()
+    e_sf = cc.eomsf_ccsd(nroots=1, tol=1e-7)
+    ucc = CCSD(pscf.convert_to_uhf(mf), device=dev, dtype=f64).set(
+        **tight).run()
+    _, e_u, _ = eom.kernel_ee_u(ucc.t1, ucc.t2, ucc.eris, nroots=2,
+                                tol=1e-7)
+    _, e_trip, _ = eom.kernel_ee_triplet(cc.t1, cc.t2, ucc.eris, nroots=1,
+                                         tol=1e-8)
+    d_sf = check("SF vs U triplet", e_sf[0], e_u[0], 5e-6)
+    d_trip = check("triplet vs U", e_trip[0], e_u[0], 1e-7)
+    # MOM-GF: hole and particle poles against Davidson IP/EA
+    cc.solve_lambda()
+    gf = MomGFCCSD(cc, niter=(4, 4))
+    gf.kernel()
+    ips, w_ip = gf.ipgfccsd(nroots=3)
+    eas, _ = gf.eagfccsd(nroots=3)
+    d_gf = max(check("MOM-GF IP", ips[0], cc.ipccsd(nroots=1)[0], 2e-3),
+               check("MOM-GF EA", eas[0], cc.eaccsd(nroots=1)[0], 2e-3))
+    if not w_ip[0] > 0.5:
+        raise RuntimeError(f"MOM-GF first hole pole weight {w_ip[0]}")
+    mom = build_hole_moments(cc.t1, cc.t2, cc.l1, cc.l2, cc.eris, 2)
+    gf2 = MomGFCCSD(cc, niter=(2, 2))
+    gf2.kernel(hole_moments=mom)
+    d_mom = max(gf2.moment_errors(mom, gf2.eh, gf2.vh))
+    if not d_mom < 1e-6:
+        raise RuntimeError(f"MOM-GF moments not conserved: {d_mom}")
+    say(12, "small eom checks fp64 ok", h2_ee_vs_fci=f"{d_h2:.2e}",
+        oh_u_ip_ea_vs_oracle=f"{d_u:.2e}", sf_vs_u_triplet=f"{d_sf:.2e}",
+        triplet_vs_u=f"{d_trip:.2e}", momgf_vs_davidson=f"{d_gf:.2e}",
+        momgf_moment_err=f"{d_mom:.2e}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del cc, ucc, gf, gf2
+
+    # (c) benzene/cc-pVDZ, fp32, the JAX example's tolerances
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bz = eom_benzene.run(dev, f32)
+    for k in ("ee", "ip", "ea"):
+        r = bz[k]
+        if not (r["converged"] and r["max_abs_dev_ev"] < ATOL_BENZENE_EV):
+            raise RuntimeError(f"benzene {k}: {r}")
+        say(12, f"benzene {k} fp32 ok", roots_ev=json.dumps(
+            [round(x, 6) for x in r["roots_ev"]]),
+            max_abs_dev_ev=f"{r['max_abs_dev_ev']:.2e}",
+            atol_ev=ATOL_BENZENE_EV, cycles=r["cycles"],
+            matvecs=r["matvecs"], s_per_sigma=f"{r['s_per_sigma']:.4f}",
+            sec=f"{r['sec']:.1f}",
+            host_davidson_sec=f"{r['host_davidson_sec']:.1f}",
+            peak_gib=r["peak_gib"])
+    say(12, "benzene set-up", card=json.dumps(smi),
+        e_scf=repr(bz["e_scf"]), d_scf=f"{bz['d_scf_vs_ref']:.2e}",
+        e_corr=repr(bz["e_corr"]), d_ccsd=f"{bz['d_ccsd_vs_ref']:.2e}",
+        host_rhf_s=f"{bz['rhf_s']:.1f}", host_eri_s=f"{bz['eri_s']:.1f}",
+        device_eris_s=f"{bz['eris_s']:.2f}", ccsd_s=f"{bz['ccsd_s']:.1f}",
+        fp64="left out (the host Davidson would double the phase)",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # (d) one EE sigma at the (H2O)8 shape (cold: the call's first run)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    beris = testing.synthetic_eris(NOCC, NVIR, NAUX, device=dev, dtype=f32,
+                                   generator=gen, build_ovvv=False)
+    _, bt1, bt2 = rccsd.init_amps(beris)
+    ntile_eom = eom.plan_ntile(beris)
+    r1 = torch.randn(bt1.shape, generator=gen, device=dev) * 1e-2
+    r2 = torch.randn(bt2.shape, generator=gen, device=dev) * 1e-2
+    r2 = 0.5 * (r2 + r2.permute(1, 0, 3, 2))
+    torch.cuda.reset_peak_memory_stats()
+    (s1, s2), sec_sig = seconds(torch, lambda: eom.ee_sigma(
+        bt1, bt2, beris, r1, r2, ntile=ntile_eom))
+    peak_sig = torch.cuda.max_memory_allocated()
+    if not (torch.isfinite(s1).all() and torch.isfinite(s2).all()):
+        raise RuntimeError("non-finite EE sigma at the (H2O)8 shape")
+    del s1, s2, r1, r2
+    say(12, "(H2O)8 ee sigma fp32", ntile=ntile_eom,
+        ntile_sweep_planner=memory.plan_ladder_ntile(NOCC, NVIR, NAUX, f32,
+                                                     device=dev),
+        sec=f"{sec_sig:.3f}", sweeps=f"{sec_sig / sweep_sec:.2f}",
+        peak_gib=f"{peak_sig / 2**30:.2f}",
+        vector_gb_fp64=f"{8 * (bt1.numel() + bt2.numel()) / 1e9:.2f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    # (e) the streamed ladder at the (H2O)8 shape, ntile NTILE_STREAM:
+    # resident first, its results kept on the host, then Lvv moves to a
+    # pinned host store and leaves the device.  The MP2 guess has t1 = 0
+    # here (a diagonal Fock), which would make every t1 term an exact
+    # zero: a seeded t1 of 1e-2 dresses the tiles
+    nt = NTILE_STREAM
+    et1 = 1e-2 * torch.randn(bt1.shape, generator=gen, device=dev,
+                             dtype=f32)
+
+    def sweep(er):
+        torch.cuda.reset_peak_memory_stats()
+        rccsd.update_amps(et1, bt2, er, ntile=nt)       # warm
+        (a1, a2), s = seconds(torch, lambda: rccsd.update_amps(
+            et1, bt2, er, ntile=nt))
+        peak = torch.cuda.max_memory_allocated()
+        a2 = a2.cpu()
+        del a1
+        torch.cuda.reset_peak_memory_stats()
+        out, s_l = seconds(torch, lambda: lambda_ad._lambda_step(
+            et1, bt2, et1, bt2, er, ntile=nt))
+        peak_l = torch.cuda.max_memory_allocated()
+        res2 = out[3].cpu()
+        del out
+        return a2, s, peak, res2, s_l, peak_l
+
+    res = sweep(beris)
+    lvv_bytes = beris.Lvv.numel() * beris.Lvv.element_size()
+    store = HostStore.from_tensor(beris.Lvv, dev, ntile=nt)
+    beris = beris._replace(Lvv=None, Lvv_stream=store)
+    torch.cuda.empty_cache()
+    tile_bytes = store.nbytes // store.ntile
+    b0 = store.bytes_moved
+    strm = sweep(beris)
+    moved = store.bytes_moved - b0
+    # two sweeps (warm and timed) and one Lambda step moved `moved`; the
+    # sweep's share is one third only if the three move alike: count one
+    # sweep apart
+    b1 = store.bytes_moved
+    rccsd.update_amps(et1, bt2, beris, ntile=nt)
+    torch.cuda.synchronize()
+    moved_sweep = store.bytes_moved - b1
+    # the host -> device rate on the same pinned buffer, all tiles
+    tiles = [store.tiles[a] for a in range(store.ntile)]
+    _, s_copy = seconds(torch, lambda: [t.to(dev, non_blocking=True)
+                                        for t in tiles])
+    rate = store.nbytes / s_copy
+    rel = float((strm[0] - res[0]).norm() / res[0].norm())
+    rel_l = float((strm[3] - res[3]).norm() / res[3].norm())
+    saved = res[2] - strm[2], res[5] - strm[5]
+    need = lvv_bytes - 3 * tile_bytes
+    copy_s = moved_sweep / rate
+    if not (rel < RTOL_STREAM and rel_l < RTOL_STREAM
+            and min(saved) >= need):
+        raise RuntimeError(
+            f"streamed vs resident: sweep rel {rel}, Lambda rel {rel_l}; "
+            f"peaks saved {saved} bytes, need {need}")
+    say(12, "(H2O)8 streamed ladder fp32 ok", ntile=nt, rtol=RTOL_STREAM,
+        rel_sweep=f"{rel:.2e}", rel_lambda_res2=f"{rel_l:.2e}",
+        lvv_gib=f"{lvv_bytes / 2**30:.3f}",
+        tile_gib=f"{tile_bytes / 2**30:.4f}",
+        sweep_sec_resident=f"{res[1]:.3f}", sweep_sec_streamed=f"{strm[1]:.3f}",
+        peak_gib_resident=f"{res[2] / 2**30:.2f}",
+        peak_gib_streamed=f"{strm[2] / 2**30:.2f}",
+        lambda_sec_resident=f"{res[4]:.3f}",
+        lambda_sec_streamed=f"{strm[4]:.3f}",
+        lambda_peak_gib_resident=f"{res[5] / 2**30:.2f}",
+        lambda_peak_gib_streamed=f"{strm[5] / 2**30:.2f}",
+        saved_gib=json.dumps([round(x / 2**30, 3) for x in saved]),
+        need_gib=f"{need / 2**30:.3f}",
+        h2d_gb_per_sweep=f"{moved_sweep / 1e9:.3f}",
+        h2d_gb_all=f"{moved / 1e9:.3f}", h2d_gb_per_s=f"{rate / 1e9:.2f}",
+        copy_sec_per_sweep=f"{copy_s:.3f}",
+        unhidden_sec=f"{strm[1] - res[1]:.3f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    del beris, bt1, bt2, et1, store, tiles
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2828,6 +3163,12 @@ def main():
     say(11, "done", launches_fp32_in_record=json.dumps(so_launches["fp32"]),
         launches_fp64_not_in_record=json.dumps(so_launches["fp64"]),
         seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 12: EOM, MOM-GF and the streamed ladder ------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eom_stream_phase(torch, smi, dev, sec)
+    say(12, "done", seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

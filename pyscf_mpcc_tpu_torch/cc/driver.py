@@ -31,10 +31,6 @@ from pyscf_mpcc_tpu_torch.lib import device as _dev
 from pyscf_mpcc_tpu_torch.scf.hf import UHF
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is ROADMAP {item}, not ported yet")
-
-
 class RCCSDDriver(StreamObject):
     conv_tol = config.CC_CONV_TOL
     conv_tol_normt = config.CC_CONV_TOL_NORMT
@@ -90,10 +86,10 @@ class RCCSDDriver(StreamObject):
             eris = self.eris or self.ao2mo()
             tic = log.timer("CCSD integral transform", *tic)
         ntile = self.ntile
-        if not ntile and eris.Lvv is not None:
+        if not ntile and eris.Lov is not None:
             from pyscf_mpcc_tpu_torch.lib import memory as _mem
             ntile = _mem.plan_ladder_ntile(self.nocc, self.nmo - self.nocc,
-                                           eris.Lvv.shape[0], self.dtype,
+                                           eris.Lov.shape[0], self.dtype,
                                            device=self.device)
         self.converged, self.e_corr, self.t1, self.t2 = rccsd.kernel(
             eris, max_cycle=self.max_cycle, conv_tol=self.conv_tol,
@@ -133,12 +129,12 @@ class RCCSDDriver(StreamObject):
         if eris is None:
             eris = self.eris or self.ao2mo()
         ntile = self.ntile
-        if not ntile and eris.Lvv is not None:
+        if not ntile and eris.Lov is not None:
             # the backward pass keeps a W block and its cotangent live, so
             # plan a finer tiling than the forward solve
             from pyscf_mpcc_tpu_torch.lib import memory as _mem
             ntile = _mem.plan_ladder_ntile(self.nocc, self.nmo - self.nocc,
-                                           eris.Lvv.shape[0], self.dtype,
+                                           eris.Lov.shape[0], self.dtype,
                                            vjp=True, device=self.device)
         conv, self.l1, self.l2 = lambda_ad.kernel(
             t1 if t1 is not None else self.t1,
@@ -168,10 +164,44 @@ class RCCSDDriver(StreamObject):
     def make_rdm2(self):
         return self.make_rdm12()[1]
 
-    def eeccsd(self, *args, **kwargs):
-        _not_ported("EOM-CCSD (cc/eom)", "A14")
+    def eeccsd(self, nroots=3, tol=1e-6):
+        """Lowest EE-EOM-CCSD excitation energies (Jacobian-jvp sigma)."""
+        from pyscf_mpcc_tpu_torch.cc import eom
+        eris = self.eris or self.ao2mo()
+        conv, e, vecs = eom.kernel_ee(self.t1, self.t2, eris, nroots=nroots,
+                                      tol=tol, ntile=self.ntile or None)
+        return e
 
-    ipccsd = eaccsd = eomsf_ccsd = eeccsd
+    def ipccsd(self, nroots=3, tol=1e-7):
+        """Lowest IP-EOM-CCSD ionization energies (continuum-orbital
+        embedding of the EE Jacobian; reference eom_rccsd.py:291)."""
+        from pyscf_mpcc_tpu_torch.cc import eom
+        eris = self.eris or self.ao2mo()
+        conv, e, vecs = eom.kernel_ip(self.t1, self.t2, eris,
+                                      nroots=nroots, tol=tol,
+                                      ntile=self.ntile or None)
+        return e
+
+    def eaccsd(self, nroots=3, tol=1e-7):
+        """Lowest EA-EOM-CCSD attachment energies (reference
+        eom_rccsd.py:606)."""
+        from pyscf_mpcc_tpu_torch.cc import eom
+        eris = self.eris or self.ao2mo()
+        conv, e, vecs = eom.kernel_ea(self.t1, self.t2, eris,
+                                      nroots=nroots, tol=tol,
+                                      ntile=self.ntile or None)
+        return e
+
+    def eomsf_ccsd(self, nroots=2, tol=1e-6):
+        """Lowest spin-flip EE-EOM-CCSD roots (Ms -> -1 sector), via the
+        spin-orbital Jacobian on the host (reference eom_rccsd
+        EOMEESpinFlip role); small systems (spin-orbital einsums)."""
+        from pyscf_mpcc_tpu_torch.cc import eom, gccsd_slow
+        er = gccsd_slow.eris_from_scf(self._scf, frozen=self.frozen)
+        _, t1g, t2g, _ = gccsd_slow.kernel(er, conv_tol=1e-10,
+                                           conv_tol_normt=1e-8)
+        conv, e, vecs = eom.kernel_sf(t1g, t2g, er, nroots=nroots, tol=tol)
+        return e
 
     def dump_chk(self, path, key="ccsd"):
         """Checkpoint the solution (e_corr, t1, t2, mo_coeff) to HDF5, in
@@ -289,10 +319,21 @@ class UCCSDDriver(StreamObject):
     def e_tot(self):
         return self._scf.e_tot + self.e_corr
 
-    def ipccsd(self, *args, **kwargs):
-        _not_ported("EOM-UCCSD (cc/eom)", "A14")
+    def ipccsd(self, nroots=3, tol=1e-7, spin="a"):
+        """Lowest IP-EOM-UCCSD roots for ``spin``-electron removal."""
+        from pyscf_mpcc_tpu_torch.cc import eom
+        eris = self.eris or self.ao2mo()
+        conv, e, vecs = eom.kernel_ip_u(self.t1, self.t2, eris,
+                                        nroots=nroots, tol=tol, spin=spin)
+        return e
 
-    eaccsd = ipccsd
+    def eaccsd(self, nroots=3, tol=1e-7, spin="a"):
+        """Lowest EA-EOM-UCCSD roots for ``spin``-electron attachment."""
+        from pyscf_mpcc_tpu_torch.cc import eom
+        eris = self.eris or self.ao2mo()
+        conv, e, vecs = eom.kernel_ea_u(self.t1, self.t2, eris,
+                                        nroots=nroots, tol=tol, spin=spin)
+        return e
 
     def ccsd_t(self, t1=None, t2=None, eris=None, tile=8):
         """UCCSD(T) through the tiled spin-orbital kernel

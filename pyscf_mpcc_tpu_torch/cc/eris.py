@@ -34,10 +34,9 @@ class RERIs(NamedTuple):
     Lvv: Optional[torch.Tensor] = None   # (naux, a, b) DF factor, DF mode
     Lov: Optional[torch.Tensor] = None   # (naux, i, a)
     Loo: Optional[torch.Tensor] = None   # (naux, i, j)
-    # the JAX package's out-of-core Lvv handle (stream_vv=True); kept so
-    # both containers have the same fields, always None here until the
-    # streamed ladder is ported (ROADMAP A16)
-    Lvv_stream: Optional[torch.Tensor] = None
+    # out-of-core mode (stream_vv=True, cc/stream_ladder): Lvv stays in
+    # host memory in this lib/hoststore.HostStore and Lvv is None
+    Lvv_stream: Optional[object] = None
 
     @property
     def nocc(self):
@@ -120,16 +119,25 @@ def make_eris_df(b_ao, mo_coeff, fock_ao, nocc, dtype=None, keep_ovvv=True,
 
     b_ao: (naux, nao, nao) 3-center factors (host array or tensor).
     keep_ovvv=False factorizes every ovvv contraction through Lov/Lvv
-    (production path: (ia|bc) is 9.7 GB in fp32 at (H2O)8/cc-pVTZ)."""
+    (production path: (ia|bc) is 9.7 GB in fp32 at (H2O)8/cc-pVTZ).
+    stream_vv=True is the out-of-core mode (cc/stream_ladder): Lvv stays
+    in host memory (``Lvv_stream``, pinned on CUDA) and only its row
+    tiles reach the device; implies keep_ovvv=False."""
     if transform_backend == "ozaki":
         raise NotImplementedError(
             "transform_backend='ozaki' is not ported: the transforms run in "
             "native fp64 (ROADMAP north star, rule 3)")
-    if stream_vv:
-        raise NotImplementedError(
-            "stream_vv (host-resident Lvv) is ROADMAP A16, not ported yet")
     device, dtype = _dev.resolve(device, dtype)
-    Loo, Lov, Lvv = df_factors(b_ao, mo_coeff, nocc, dtype, device=device)
+    if stream_vv:
+        Loo, Lov, Lvv_stream, oovv = _df_factors_streamed(
+            b_ao, mo_coeff, nocc, dtype, device)
+        Lvv = ovvv = None
+    else:
+        Loo, Lov, Lvv = df_factors(b_ao, mo_coeff, nocc, dtype,
+                                   device=device)
+        oovv = _pair(Loo, Lvv)
+        ovvv = _pair(Lov, Lvv) if keep_ovvv else None
+        Lvv_stream = None
     mo = _fp64(mo_coeff, device)
     fock = (mo.T @ _fp64(fock_ao, device) @ mo).to(dtype)
     return RERIs(
@@ -138,9 +146,36 @@ def make_eris_df(b_ao, mo_coeff, fock_ao, nocc, dtype=None, keep_ovvv=True,
         oooo=_pair(Loo, Loo),
         ovoo=_pair(Lov, Loo),
         ovov=_pair(Lov, Lov),
-        oovv=_pair(Loo, Lvv),
+        oovv=oovv,
         ovvo=None,               # == ovov.permute(0,1,3,2); derived lazily
-        ovvv=_pair(Lov, Lvv) if keep_ovvv else None,
+        ovvv=ovvv,
         vvvv=None,
-        Lvv=Lvv, Lov=Lov, Loo=Loo,
+        Lvv=Lvv, Lov=Lov, Loo=Loo, Lvv_stream=Lvv_stream,
     )
+
+
+def _df_factors_streamed(b_ao, mo_coeff, nocc, dtype, device):
+    """(Loo, Lov, store, oovv) with Lvv built in fp64 on the device one
+    row tile at a time, stored in the working dtype into a host store
+    (lib/hoststore), and its oovv rows formed from each tile: the whole
+    Lvv never sits on the device."""
+    from pyscf_mpcc_tpu_torch.lib.hoststore import HostStore
+    mo = _fp64(mo_coeff, device)
+    cv = mo[:, nocc:]
+    B = _fp64(b_ao, device)
+    Lo = torch.einsum("Lpq,pi->Liq", B, mo[:, :nocc])
+    Loo = torch.einsum("Liq,qj->Lij", Lo, mo[:, :nocc]).to(dtype)
+    Lov = torch.einsum("Liq,qa->Lia", Lo, cv).to(dtype)
+    del Lo
+    naux, nvir = B.shape[0], cv.shape[1]
+    store = HostStore(naux, nvir, dtype, device)
+    oovv = torch.empty((nocc, nocc, nvir, nvir), dtype=dtype, device=device)
+    for a in range(store.ntile):
+        sl = slice(a * store.tsz, (a + 1) * store.tsz)
+        Lv = torch.einsum("Lpq,pa->Laq", B, cv[:, sl])
+        rows = torch.einsum("Laq,qb->Lab", Lv, cv).to(dtype)
+        del Lv
+        store.set_tile(a, rows)
+        oovv[:, :, sl] = _pair(Loo, rows)
+        del rows
+    return Loo, Lov, store, oovv

@@ -4,7 +4,8 @@ Port of ``pyscf_mpcc_tpu/cc/rccsd.py``: the spin-adapted CCSD equations of
 Hirata et al., J. Chem. Phys. 120, 2581 (2004), Eqs. (35)-(45), as dense
 torch contractions (cuBLAS GEMMs on the card).  The O(nocc^2 nvir^4)
 particle-particle ladder runs from materialized vvvv (small systems) or
-from density-fitted Lvv factors over symmetric virtual tile pairs.
+from density-fitted Lvv factors over symmetric virtual tile pairs, the
+factor on the device or streamed from host memory (cc/stream_ladder).
 
 PyTorch runs eagerly, so the JAX package's ``jax.jit`` and
 ``optimization_barrier`` have no counterpart: the P(ij|ab) pieces of the
@@ -71,11 +72,15 @@ def _ladder_df(tau, t1, eris, ntile):
     quadratic term sum_kl t1_ka t1_lb (kc|ld) tau_ijcd is subtracted
     explicitly."""
     if eris.Lvv_stream is not None:
-        raise NotImplementedError(
-            "streamed Lvv ladder is ROADMAP A16, not ported yet")
-    Ld = eris.Lvv - einsum("ka,Lkc->Lac", t1, eris.Lov)
-    out = pair_ladder_sym(tau, Ld, ntile)
-    del Ld
+        # out-of-core: Lvv stays in host memory and the pair sweep fetches
+        # its row tiles (cc/stream_ladder)
+        from pyscf_mpcc_tpu_torch.cc import stream_ladder
+        out = stream_ladder.pair_ladder_sym(tau, t1, eris.Lov,
+                                            eris.Lvv_stream, ntile)
+    else:
+        Ld = eris.Lvv - einsum("ka,Lkc->Lac", t1, eris.Lov)
+        out = pair_ladder_sym(tau, Ld, ntile)
+        del Ld
     # subtract the quadratic dressing artifact
     tmp = einsum("kcld,ijcd->klij", eris.ovov, tau)
     out.sub_(einsum("klij,ka,lb->ijab", tmp, t1, t1))
@@ -90,15 +95,11 @@ def pair_ladder_sym(tau, Ld, ntile):
     exactly and tau is (ij)<->(cd) joint-swap symmetric, so
     Ht2[i,j,a,b] = Ht2[j,i,b,a].  tau is symmetrized on entry, which makes
     the mirrored ladder a well-defined function of an arbitrary t2 (an
-    exact no-op for the symmetric iterates the solvers produce).  Each
-    A >= B block is written once into the output, diagonal blocks halved,
-    and the mirrors are applied by ONE S + S.transpose(1,0,3,2) at the
-    end.  nvir is zero-padded to a tile multiple; any ntile >= 1 works.
+    exact no-op for the symmetric iterates the solvers produce).  nvir is
+    zero-padded to a tile multiple; any ntile >= 1 works (see
+    mirrored_sweep).
     """
-    # exact pass-through for symmetric tau (x+x is exact, 0.5* is exact)
-    tau = 0.5 * (tau + tau.permute(1, 0, 3, 2))
     naux, nvir = Ld.shape[0], Ld.shape[1]
-    nocc = tau.shape[0]
     ntile = max(1, min(int(ntile), nvir))
     tsz = -(-nvir // ntile)
     nvp = ntile * tsz
@@ -107,18 +108,37 @@ def pair_ladder_sym(tau, Ld, ntile):
         # padded a-rows of Ld are zero -> zero output rows (mirrors stay
         # exact); padded c-columns contract against zero tau columns
         Ld = torch.nn.functional.pad(Ld, (0, pad, 0, pad))
-        tau = torch.nn.functional.pad(tau, (0, pad, 0, pad))
     Ld_t = Ld.reshape(naux, ntile, tsz * nvp)
+    return mirrored_sweep(
+        tau, ntile, tsz,
+        lambda tau, a, b, nxt: _remat(_pair_block, Ld_t, tau, a, b))
+
+
+def mirrored_sweep(tau, ntile, tsz, block):
+    """The mirrored pair sweep of pair_ladder_sym and of the streamed
+    ladder (cc/stream_ladder): tau symmetrized and zero-padded to
+    ntile*tsz virtuals; ``block(tau, a, b, nxt)`` gives the A >= B block
+    (nxt: the first tile of the next pair, None after the last).  Each
+    block is written once into the output, diagonal blocks halved, and
+    the mirrors are applied by ONE S + S.permute(1,0,3,2) at the end."""
+    # exact pass-through for symmetric tau (x+x is exact, 0.5* is exact)
+    tau = 0.5 * (tau + tau.permute(1, 0, 3, 2))
+    nocc, nvir = tau.shape[0], tau.shape[2]
+    nvp = ntile * tsz
+    pad = nvp - nvir
+    if pad:
+        tau = torch.nn.functional.pad(tau, (0, pad, 0, pad))
     s = torch.zeros((nocc, nocc, nvp, nvp), dtype=tau.dtype,
                     device=tau.device)
-    for a in range(ntile):
-        for b in range(a + 1):
-            blk = _remat(_pair_block, Ld_t, tau, a, b)
-            if a == b:
-                # halve diagonal blocks: the final S + S^T counts them twice
-                blk.mul_(0.5)
-            s[:, :, a * tsz:(a + 1) * tsz, b * tsz:(b + 1) * tsz] = blk
-            del blk
+    pairs = [(a, b) for a in range(ntile) for b in range(a + 1)]
+    for k, (a, b) in enumerate(pairs):
+        nxt = pairs[k + 1][0] if k + 1 < len(pairs) else None
+        blk = block(tau, a, b, nxt)
+        if a == b:
+            # halve diagonal blocks: the final S + S^T counts them twice
+            blk.mul_(0.5)
+        s[:, :, a * tsz:(a + 1) * tsz, b * tsz:(b + 1) * tsz] = blk
+        del blk
     out = s + s.permute(1, 0, 3, 2)
     del s
     if pad:
@@ -143,11 +163,18 @@ class _OvvvOps:
     exactly through the 3-center L tensors."""
 
     def __init__(self, eris: RERIs, ntile=1):
-        if eris.Lvv_stream is not None:
-            raise NotImplementedError(
-                "streamed Lvv (stream_vv) is ROADMAP A16, not ported yet")
         self.eris = eris
         self.df = eris.ovvv is None
+        if eris.Lvv_stream is not None:
+            # out-of-core: every contraction routes to the StreamedOvvv
+            # twin (same math, Lvv row tiles fetched from host memory);
+            # instance attributes shadow the class methods below
+            from pyscf_mpcc_tpu_torch.cc import stream_ladder
+            stream = stream_ladder.StreamedOvvv(
+                eris.Lvv_stream, eris.Lov, eris.nvir, ntile)
+            for m in ("t1_t2_terms", "lvv_t1", "wvoov_t1", "wvovo_t1",
+                      "t2_vvov_t1"):
+                setattr(self, m, getattr(stream, m))
 
     def t1_t2_terms(self, t2):
         """2*(kd|ac) t2[ikcd] - (kc|ad) t2[ikcd] -> [ia]"""

@@ -29,18 +29,23 @@ def _tensor(x, device, dtype):
 def eris_from_numpy(fields, device, dtype=None):
     """The port's RERIs from ``{name: np.ndarray | None}``.
 
-    Unknown field names raise; ``Lvv_stream`` must be None (the streamed
-    Lvv mode is not ported)."""
+    Unknown field names raise.  A streamed container (stream_vv) gives
+    ``Lvv_stream`` as the (naux, nvir, nvir) host array of the JAX
+    package's store (``hoststore.get(handle)``); it becomes a
+    lib/hoststore.HostStore on ``device``."""
+    from pyscf_mpcc_tpu_torch.lib.hoststore import HostStore
     device, dtype = _dev.resolve(device, dtype)
     unknown = set(fields) - set(RERIs._fields)
     if unknown:
         raise ValueError(f"unknown RERIs fields {sorted(unknown)}")
-    if fields.get("Lvv_stream") is not None:
-        raise NotImplementedError(
-            "stream_vv eris are ROADMAP A16, not ported yet")
-    return RERIs(**{k: (None if fields.get(k) is None
-                        else _tensor(fields[k], device, dtype))
-                    for k in RERIs._fields})
+    out = {k: (None if fields.get(k) is None
+               else _tensor(fields[k], device, dtype))
+           for k in RERIs._fields if k != "Lvv_stream"}
+    lvv = fields.get("Lvv_stream")
+    if lvv is not None:
+        out["Lvv_stream"] = HostStore.from_tensor(np.asarray(lvv), device,
+                                                  dtype)
+    return RERIs(**out)
 
 
 def ueris_from_numpy(fields, device, dtype=None):
@@ -73,8 +78,16 @@ def geris_from_numpy(blocks, fock, nocc, device, dtype=None):
 
 
 def amps_from_numpy(t1, t2, device, dtype=None):
-    """(t1, t2) tensors from numpy amplitudes (an MP-CC bath too)."""
+    """(t1, t2) tensors from numpy amplitudes (an MP-CC bath, Lambda
+    multipliers, EOM tangents too)."""
     return tensors_from_numpy(t1, t2, device=device, dtype=dtype)
+
+
+def uamps_from_numpy(t1, t2, device, dtype=None):
+    """Unrestricted ((t1a, t1b), (t2aa, t2ab, t2bb)) tensors from numpy
+    (amplitudes, multipliers or EOM tangents)."""
+    out = tensors_from_numpy(*t1, *t2, device=device, dtype=dtype)
+    return out[:2], out[2:]
 
 
 def tensors_from_numpy(*arrays, device, dtype=None):

@@ -67,6 +67,38 @@ def plan_ladder_ntile(nocc, nvir, naux, dtype="float32", budget=None,
     return -(-nvir // 16)
 
 
+def ccsd_working_set_bytes(nocc, nvir, naux, ntile=1, dtype="float32",
+                           ndev=1, stream_vv=False):
+    """Model of the DF-CCSD update working set (bytes) on one device,
+    the JAX package's model unchanged.
+
+    ndev=1: the single-device footprint: persistent DF factors + the
+    four-index ERI blocks + amplitudes (t, t_new, DIIS extrapolant) + the
+    ladder tile block.  ndev>1: the per-device footprint with Lvv/Lov/Loo
+    split over naux and the t2-likes over the first occupied axis, the
+    small four-index blocks replicated.  The capacity tests use it to
+    show that a problem exceeds one device's budget while its split or
+    streamed layout fits.
+
+    stream_vv=True models the out-of-core mode (cc/stream_ladder): Lvv
+    stays in host memory, and what the device holds of it is two row
+    tiles (the fetched tile and the next one, prefetched)."""
+    isz = _itemsize(dtype)
+    o2v2 = nocc * nocc * nvir * nvir
+    tsz = -(-nvir // max(ntile, 1))
+    lvv = naux * nvir * nvir * isz
+    if stream_vv:
+        lvv = 2 * naux * tsz * nvir * isz      # fetched tile + prefetch
+    df = lvv + (naux * nocc * nvir
+                + naux * nocc * nocc) * isz    # (Lvv) + Lov + Loo
+    eris4 = 4 * o2v2 * isz                     # ovov + oovv + ovvo + ovoo~
+    t2likes = 3 * o2v2 * isz                   # t2, t2new, tau
+    tile = tsz * tsz * nvir * nvir * isz * 2
+    if ndev == 1:
+        return df + eris4 + t2likes + tile
+    return df // ndev + eris4 + t2likes // ndev + tile
+
+
 def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
                       max_tile=8, device=None):
     """Tile edge for the fused CCSD(T) engine (cc/ccsd_t.kernel).

@@ -67,9 +67,20 @@ def test_make_eris_df_matches_jax(h2o, keep_ovvv):
     np.testing.assert_array_equal(
         convert.to_numpy(port.get_ovvo()),
         convert.to_numpy(port.ovov).transpose(0, 1, 3, 2))
-    for kw in (dict(stream_vv=True), dict(transform_backend="ozaki")):
-        with pytest.raises(NotImplementedError):
-            teris.make_eris_df(*args, device=CPU, **kw)
+    # the out-of-core container: the same fields with Lvv in a host store
+    st = teris.make_eris_df(*args, stream_vv=True, device=CPU)
+    assert st.Lvv is None and st.ovvv is None and port.Lvv_stream is None
+    lvv = convert.to_numpy(port.Lvv)
+    np.testing.assert_allclose(st.Lvv_stream.to_dense().numpy(), lvv,
+                               rtol=0, atol=1e-13 * np.abs(lvv).max())
+    for k in ("fock", "mo_energy", "oooo", "ovoo", "ovov", "oovv", "Lov",
+              "Loo"):
+        np.testing.assert_allclose(
+            convert.to_numpy(getattr(st, k)),
+            convert.to_numpy(getattr(port, k)), rtol=0, atol=1e-13,
+            err_msg=k)
+    with pytest.raises(NotImplementedError):
+        teris.make_eris_df(*args, device=CPU, transform_backend="ozaki")
 
 
 def test_eris_from_numpy_round_trip(h2o):

@@ -251,7 +251,7 @@ def test_scf_energy_diis_matches(scheme):
 
 SPINORB_COPIES = ("cc/addons.py", "scf/ghf.py", "cc/gccsd_slow.py",
                   "ci/fci_slow.py", "cc/eom_slow.py", "cc/gccsdt1_slow.py",
-                  "cc/gccsdt_slow.py", "mp/mp2f12.py")
+                  "cc/gccsdt_slow.py", "mp/mp2f12.py", "lib/linalg.py")
 
 
 @pytest.mark.parametrize("path", SPINORB_COPIES)

@@ -45,7 +45,9 @@ LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
                 "cc.gccsd", "cc.qcisd", "cc.bccd", "cc.gccsd_t_rdm",
                 "cc.addons", "scf.ghf", "cc.gccsd_slow", "ci.fci_slow",
                 "cc.eom_slow", "cc.gccsdt1_slow", "cc.gccsdt_slow",
-                "mp.mp2f12", "mp.gmp2", "mp.dfgmp2", "utils.profiling")
+                "mp.mp2f12", "mp.gmp2", "mp.dfgmp2", "utils.profiling",
+                "lib.linalg", "cc.eom", "cc.momgfccsd", "lib.hoststore",
+                "cc.stream_ladder")
 
 
 def test_df_slice_matches_jax_driver(monkeypatch):
@@ -200,3 +202,28 @@ def test_spinorb_entry_points_default_to_cuda(name):
         pytest.skip("the card is present; chip_smoke.py phase 11 runs these")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _spinorb_entry_points()[name]()
+
+
+def _eom_stream_entry_points():
+    from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
+    from pyscf_mpcc_tpu_torch.lib.hoststore import HostStore
+    from pyscf_mpcc_tpu_torch.examples import eom_benzene
+    b = np.zeros((3, 2, 2))
+    return {
+        "make_eris_df_stream": lambda: eris_mod.make_eris_df(
+            b, np.eye(2), np.eye(2), 1, stream_vv=True, device=None),
+        "HostStore": lambda: HostStore.from_tensor(np.zeros((3, 2, 2)),
+                                                   None),
+        "eom_benzene": lambda: eom_benzene.main(["--device", "cuda"]),
+    }
+
+
+@pytest.mark.parametrize("name", list(_eom_stream_entry_points()))
+def test_eom_stream_entry_points_default_to_cuda(name):
+    """The EOM and out-of-core slice's device entry points resolve a
+    missing device to the card (lib/device.resolve) and raise where there
+    is none."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is present; chip_smoke.py phase 12 runs these")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _eom_stream_entry_points()[name]()

@@ -86,6 +86,10 @@ def ref():
     jd.run()
     out["driver_frozen"] = (jd.e_corr, jd.e_tot, jd.ccsd_t(tile=2),
                             float(ju.init_amps(jd.eris)[0]))
+    # the IP-EOM-UCCSD roots at the driver's defaults, and the state they
+    # were computed on (handed to the port's driver below)
+    out["driver_ip"] = (np.asarray(jd.ipccsd()), np_tuple(jd.t1),
+                        np_tuple(jd.t2), fields(jd.eris))
     return out
 
 
@@ -249,8 +253,12 @@ def test_driver_dispatch_and_frozen_df(ref):
     assert abs(cc.e_corr - je) < TOL_CONV and abs(cc.e_tot - jtot) < TOL_CONV
     assert abs(cc.ccsd_t(tile=2) - jet) < TOL_CONV
     assert abs(float(uccsd.init_amps(cc.eris)[0]) - jmp2) < TOL_SWEEP
-    with pytest.raises(NotImplementedError, match="A14"):
-        cc.ipccsd()
+    # IP-EOM: on the port's own amplitudes, and on the JAX driver's
+    jip, jt1, jt2, jfields = ref["driver_ip"]
+    np.testing.assert_allclose(cc.ipccsd(), jip, rtol=0, atol=1e-8)
+    cc.t1, cc.t2 = convert.uamps_from_numpy(jt1, jt2, CPU)
+    cc.eris = convert.ueris_from_numpy(jfields, CPU)
+    np.testing.assert_allclose(cc.ipccsd(), jip, rtol=0, atol=TOL_CONV)
     ro = _port_mf(ref["o2", "incore"]["mf"], cls="ROHF")
     assert isinstance(CCSD(ro, device=CPU), UCCSDDriver)
     rh = _port_mf(ref["h2o", "incore"]["mf"], cls="RHF")
