@@ -149,9 +149,26 @@ each, started together), then runs:
      device a sweep, the rate on the same pinned buffer and the copy time
      the compute does not hide.
 
+ 13. the multi-device layer (parallel/, the mesh (T); mesh_bench and
+     shared_card): (a) a NCCL group over every visible card (rank 0 in
+     this process, the others spawned) at the (H2O)8 shape in fp32 on
+     synthetic integrals: with a seeded t1, one sharded_update_amps sweep
+     and one update_amps_tiled sweep against rccsd.update_amps (relative
+     t2 gap, s, peak); on phase 4's amplitudes, the 64-tile (T) probe
+     through the mesh on the fused engine at chunk 1 and 4 and the
+     resident engine in mode split against the same probe without a mesh
+     (launches counted, ms a tile),
+     and the 64-tile UCCSD(T) probe at the OH(H2O)3/cc-pVTZ shape through
+     the mesh against the one without; (b) two ranks sharing the card
+     over gloo (one spawned), fp64, small shapes: the JAX package's four
+     dry-run stages (sharded RCCSD update, the sharded (T) through the
+     combine and resident kernels, sharded UCCSD update, tiled update)
+     and a mesh (T) whose 35 tiles the two ranks split unevenly, each
+     against the same call on one rank, 1e-12.
+
 Every phase raises on failure.  The last lines are the kernel record
-(each kernel's launches on the full-width probe and phase 11's fp32 ones
-outside its comparisons with engine='xla', its error against the
+(each kernel's launches on the full-width probe, phase 11's fp32 ones
+outside its comparisons with engine='xla' and phase 13(a)'s mesh probes, its error against the
 plain version, its time, the plain version's time and the least time the
 card could take, from the peak rates below), the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -392,6 +409,12 @@ NTILE_STREAM, RTOL_STREAM = 8, 1e-5
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # bytes/s of HBM3 and FLOP/s per operand type, for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
+# phase 13: the mesh against the same call on one rank.  fp64 on one
+# card: the same products, partial sums added in another order (the CPU
+# tests' bound for the updates and the (T)); the tiled update 1e-11 there
+ATOL_MESH_FP64 = 1e-12
+# the spawned ranks' time limit (s): start-up, the build check, the work
+RANK_TIMEOUT = 300
 
 
 def say(phase, msg, **kw):
@@ -2227,6 +2250,284 @@ def eom_stream_phase(torch, smi, dev, sweep_sec):
     del beris, bt1, bt2, et1, store, tiles
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def run_ranks(fn, world, *args):
+    """fn(rank, world, init_method, *args) on ``world`` ranks: rank 0 in
+    this process, the others in processes of the 'spawn' start method.
+    Returns rank 0's result.  A spawned rank that fails or outlives
+    RANK_TIMEOUT fails the phase (it is killed); when rank 0 raises, the
+    others are killed at once."""
+    import multiprocessing as mp
+    init = f"tcp://localhost:{_free_port()}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, world, init, *args))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        out = fn(0, world, init, *args)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.join()
+        raise
+    deadline = time.monotonic() + RANK_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+    bad = [(r + 1, p.exitcode) for r, p in enumerate(procs)
+           if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"spawned ranks failed (rank, exit code): {bad}")
+    return out
+
+
+def _rel(torch, a, b):
+    return float(torch.linalg.norm(a.double() - b.double())
+                 / torch.linalg.norm(b.double()))
+
+
+def mesh_bench(rank, world, init_method):
+    """Phase 13(a) on one rank of a NCCL group over the visible cards: the
+    sharded and tiled sweeps and the mesh (T) probes at the (H2O)8 shape,
+    the mesh UCCSD(T) probe at the OH(H2O)3/cc-pVTZ shape.  Rank 0 holds
+    each to the same call without a mesh, prints, and returns the mesh
+    probes' launches {'fused', 'chunk', 'resident'}."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from pyscf_mpcc_tpu_torch import testing
+    from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd, uccsd, uccsd_t
+    from pyscf_mpcc_tpu_torch.lib import memory
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    from pyscf_mpcc_tpu_torch.parallel import ccsd_shard as cs
+    from pyscf_mpcc_tpu_torch.parallel import distributed
+    from pyscf_mpcc_tpu_torch.parallel import mesh as pm
+    f32 = torch.float32
+    root = rank == 0
+    distributed.initialize(init_method, world_size=world, rank=rank,
+                           device=torch.device("cuda", rank))
+    try:
+        mesh = pm.make_mesh()
+        dev = mesh.device
+        # the communicator is made at the first collective: before timing
+        mesh.psum(torch.ones(1, device=dev))
+        if root:
+            say(13, "mesh", backend=mesh.backend, world_size=mesh.size,
+                device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        er = testing.synthetic_eris(NOCC, NVIR, NAUX, device=dev, dtype=f32,
+                                    generator=gen, build_ovvv=False)
+        _, t1_mp2, t2 = rccsd.init_amps(er)
+        # the MP2 guess has t1 = 0 (a diagonal Fock): the sweeps take a
+        # seeded one, the (T) probes phase 4's amplitudes
+        t1 = 1e-2 * torch.randn(t1_mp2.shape, generator=gen, device=dev,
+                                dtype=f32)
+        ntile = memory.plan_ladder_ntile(NOCC, NVIR, NAUX, f32, device=dev)
+        ref2 = None
+        if root:
+            rccsd.update_amps(t1, t2, er, ntile=ntile)     # warm-up
+            torch.cuda.reset_peak_memory_stats(dev)
+            (_, ref2), s_ref = seconds(torch, lambda: rccsd.update_amps(
+                t1, t2, er, ntile=ntile))
+            peak_ref = torch.cuda.max_memory_allocated(dev)
+        sweeps = {}
+        runs = (("sharded", pm.shard_eris, pm.shard_amps,
+                 lambda a, b, e: pm.sharded_update_amps(mesh, ntile)(a, b,
+                                                                     e)),
+                ("tiled", cs.shard_eris_tiled, cs.shard_amps_tiled,
+                 lambda a, b, e: cs.update_amps_tiled(a, b, e, mesh,
+                                                      ntile=ntile,
+                                                      nchunk=2)))
+        for name, put_eris, put_amps, sweep in runs:
+            es = put_eris(er, mesh)
+            a1, a2 = put_amps(t1, t2, mesh)
+            torch.cuda.reset_peak_memory_stats(dev)
+            (o1, o2), sec = seconds(torch, lambda: sweep(a1, a2, es))
+            peak = torch.cuda.max_memory_allocated(dev)
+            o2 = mesh.all_gather(o2)
+            if root:
+                rel = _rel(torch, o2, ref2)
+                if not (rel < RTOL_SWEEP_FP32
+                        and torch.isfinite(o1).all()):
+                    raise RuntimeError(f"{name} sweep deviates from "
+                                       f"rccsd.update_amps by {rel}")
+                sweeps[name] = dict(sec=f"{sec:.4f}",
+                                    peak_gib=f"{peak / 2**30:.2f}",
+                                    rel_t2=f"{rel:.3e}")
+            del es, a1, a2, o1, o2
+        if root:
+            say(13, "(H2O)8 sweeps fp32", ntile=ntile, nchunk_tiled=2,
+                sec_unsharded=f"{s_ref:.4f}",
+                peak_gib_unsharded=f"{peak_ref / 2**30:.2f}",
+                sweeps=json.dumps(sweeps), rtol=RTOL_SWEEP_FP32,
+                clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+        del ref2
+
+        def probe(mod, kern, call, **kw):
+            """(E, ms a tile, launches of the mesh run) of the 64-tile
+            probe through kern.kernel (its _tile_triples cut as in phase
+            4), and on rank 0 the same without a mesh: (E, s).  mod: the
+            kernel module whose launches are counted (None: no kernel)."""
+            orig = kern._tile_triples
+            kern._tile_triples = lambda nvt: orig(nvt)[:NPROBE]
+            try:
+                single = None
+                if root:
+                    call(**kw)                            # warm-up
+                    single = seconds(torch, lambda: call(**kw))
+                call(mesh=mesh, **kw)                     # warm-up
+                if mod is not None:
+                    mod.launch_count = 0
+                e, sec = seconds(torch, lambda: call(mesh=mesh, **kw))
+                n = None if mod is None else mod.launch_count
+            finally:
+                kern._tile_triples = orig
+            if root and not abs(e - single[0]) <= RTOL_TILE_FP32 * abs(
+                    single[0]):
+                raise RuntimeError(f"mesh (T) probe {e!r} against "
+                                   f"{single[0]!r} ({kw})")
+            return e, sec / NPROBE * 1e3, n, single
+
+        def rtrip(**kw):
+            return ccsd_t.kernel(t1_mp2, t2, er, tile=TILE, **kw)
+
+        launches, rows = {}, {}
+        for name, mod, kw in (
+                ("fused", tc, dict(engine="fused")),
+                ("chunk", tc, dict(engine="fused", chunk=4)),
+                ("resident", tr, dict(engine="resident",
+                                      dot_precision="high"))):
+            e, ms, n, single = probe(mod, ccsd_t, rtrip, **kw)
+            if root and n == 0:
+                raise RuntimeError(f"the mesh probe {name} launched no "
+                                   "kernel")
+            launches[name] = n
+            if root:
+                rows[name] = dict(launches=n, ms_per_tile=f"{ms:.3f}",
+                                  ms_per_tile_unsharded=(
+                                      f"{single[1] / NPROBE * 1e3:.3f}"),
+                                  e=repr(e), e_unsharded=repr(single[0]))
+        if root:
+            say(13, "(T) probe through the mesh fp32", tiles=NPROBE,
+                engines=json.dumps(rows),
+                clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+        del er, t1, t1_mp2, t2
+        torch.cuda.empty_cache()
+
+        na, nb, va, vb, naux = OS_SHAPE
+        ue = testing.synthetic_ueris(na, nb, va, vb, naux, device=dev,
+                                     dtype=f32, seed=0)
+        _, u1, u2 = uccsd.init_amps(ue)
+
+        def utrip(**kw):
+            return uccsd_t.kernel(u1, u2, ue, tile=TILE, **kw)
+
+        e, ms, _, single = probe(None, uccsd_t, utrip)
+        if root:
+            say(13, "OH(H2O)3/cc-pVTZ-shape UCCSD(T) probe through the mesh "
+                "fp32", tiles=NPROBE, ms_per_tile=f"{ms:.3f}",
+                ms_per_tile_unsharded=f"{single[1] / NPROBE * 1e3:.3f}",
+                e=repr(e), e_unsharded=repr(single[0]))
+        del ue, u1, u2
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def shared_card(rank, world, init_method):
+    """Phase 13(b) on one rank: the ranks share card 0 over gloo, fp64.
+    The JAX package's four dry-run stages (__graft_entry__'s
+    _dryrun_multichip_impl at nocc 8, nvir 16, naux 8 a rank) and a mesh
+    (T) of 35 tiles through the combine kernel, each against the same
+    call on one rank (every rank runs it), which rank 0 returns with the
+    gaps: {stage: max abs gap}, and its fp64 launches."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from pyscf_mpcc_tpu_torch import testing
+    from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd, uccsd
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    from pyscf_mpcc_tpu_torch.parallel import ccsd_shard as cs
+    from pyscf_mpcc_tpu_torch.parallel import distributed
+    from pyscf_mpcc_tpu_torch.parallel import mesh as pm
+    f64 = torch.float64
+    dev = torch.device("cuda", 0)
+    distributed.initialize(init_method, world_size=world, rank=rank,
+                           device=dev, backend="gloo")
+    try:
+        mesh = pm.make_mesh(device=dev)
+        nocc, nvir, naux = 8, 16, 8 * world
+        gen = torch.Generator(device=dev).manual_seed(0)
+        gaps = {}
+
+        def gap(a, b):
+            return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+        def seeded_t1(t1):
+            return 1e-2 * torch.randn(t1.shape, generator=gen, device=dev,
+                                      dtype=f64)
+
+        n0 = (tc.launch_count, tr.launch_count)
+        # stage 1: sharded RCCSD update (DF factors and ovvv)
+        er = testing.synthetic_eris(nocc, nvir, naux, device=dev, dtype=f64,
+                                    generator=gen)
+        _, t1, t2 = rccsd.init_amps(er)
+        t1 = seeded_t1(t1)
+        o1, o2 = pm.sharded_update_amps(mesh)(
+            *pm.shard_amps(t1, t2, mesh), pm.shard_eris(er, mesh))
+        gaps["1 sharded update"] = gap(
+            (o1, mesh.all_gather(o2)), rccsd.update_amps(t1, t2, er))
+        # stage 2: the sharded (T) tile scan (tile 4, 20 tiles)
+        ed = testing.synthetic_eris(nocc, nvir, naux, device=dev, dtype=f64,
+                                    generator=gen, build_ovvv=False)
+        _, d1, d2 = rccsd.init_amps(ed)
+        d1 = seeded_t1(d1)
+        for eng in ("fused", "resident"):
+            gaps[f"2 (T) {eng}"] = abs(
+                ccsd_t.kernel(d1, d2, ed, tile=4, engine=eng, mesh=mesh)
+                - ccsd_t.kernel(d1, d2, ed, tile=4, engine=eng))
+        # stage 3: sharded UCCSD update
+        ue = testing.synthetic_ueris(nocc, nocc, 12, 12, naux, device=dev,
+                                     dtype=f64, seed=1)
+        _, u1, u2 = uccsd.init_amps(ue)
+        u1 = tuple(seeded_t1(x) for x in u1)
+        s1, s2 = pm.sharded_uccsd_update(mesh)(
+            *pm.shard_uamps(u1, u2, mesh), pm.shard_ueris(ue, mesh))
+        r1, r2 = uccsd.update_amps(u1, u2, ue, ntile=1)
+        gaps["3 sharded uccsd update"] = gap(
+            (*s1, *(mesh.all_gather(x) for x in s2)), (*r1, *r2))
+        # stage 4: the tiled update (sharded compute)
+        p1, p2 = cs.update_amps_tiled(
+            *cs.shard_amps_tiled(d1, d2, mesh), cs.shard_eris_tiled(ed, mesh),
+            mesh, ntile=2, nchunk=2)
+        gaps["4 tiled update"] = gap(
+            (p1, mesh.all_gather(p2)), rccsd.update_amps(d1, d2, ed,
+                                                         ntile=2))
+        # the mesh (T) with the tile list split unevenly (35 tiles)
+        t1r, t2r, fr = testing.triples_tensors(
+            *testing.random_triples_problem(4, 9, 5, naux=13), dev, f64)
+        gaps["(T) 35 tiles fused"] = abs(
+            ccsd_t.kernel(t1r, t2r, fr, tile=2, engine="fused", mesh=mesh)
+            - ccsd_t.kernel(t1r, t2r, fr, tile=2, engine="fused"))
+        n = dict(fused=tc.launch_count - n0[0],
+                 resident=tr.launch_count - n0[1])
+        return gaps, n, mesh.backend
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3169,6 +3470,27 @@ def main():
     t0 = time.perf_counter()
     eom_stream_phase(torch, smi, dev, sec)
     say(12, "done", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 13: the multi-device layer ------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches = run_ranks(mesh_bench, torch.cuda.device_count())
+    comb_launches += mesh_launches["fused"]
+    c4_launches += mesh_launches["chunk"]
+    res_launches += mesh_launches["resident"]
+    t1_ = time.perf_counter()
+    gaps, shared_launches, backend = run_ranks(shared_card, 2)
+    bad = {k: v for k, v in gaps.items() if not v <= ATOL_MESH_FP64}
+    if bad or not all(shared_launches.values()):
+        raise RuntimeError(f"two ranks on one card: {bad} "
+                           f"{shared_launches}")
+    say(13, "two ranks share the card", backend=backend, world_size=2,
+        gaps=json.dumps({k: f"{v:.2e}" for k, v in gaps.items()}),
+        atol=ATOL_MESH_FP64,
+        launches_fp64_not_in_record=json.dumps(shared_launches),
+        seconds=f"{time.perf_counter() - t1_:.1f}")
+    say(13, "done", launches_in_record=json.dumps(mesh_launches),
+        seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

@@ -49,6 +49,27 @@ def _tile_triples(nvt):
     return np.asarray(out, dtype=np.int32)
 
 
+def mesh_block(trips, mesh):
+    """The contiguous block of the tile list that this rank of a mesh
+    (parallel/mesh) scans: the whole list without a mesh.  The JAX package
+    pads the list to a mesh multiple with weight-zero copies of tile 0 and
+    gives each device one contiguous block of the padded list; the pads
+    add exactly nothing, so here they are left out and the last ranks'
+    blocks are shorter (or empty)."""
+    if mesh is None:
+        return trips
+    per = -(-len(trips) // mesh.size)
+    return trips[mesh.rank * per:(mesh.rank + 1) * per]
+
+
+def mesh_total(e_tiles, mesh):
+    """The fp64 sum of the per-tile energies, over the ranks of the mesh
+    when there is one (each rank's block sum, then an all_reduce in
+    fp64)."""
+    e = e_tiles.sum()
+    return e if mesh is None else mesh.psum(e.reshape(1))[0]
+
+
 def _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
              engine, rmode="f32"):
     """Padded, relaid-out tensors shared by every tile (the JAX package's
@@ -394,10 +415,16 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
     eager loop here has no such program and ignores it.  tile=0 lets
     lib/memory size the tile edge (CUDA, or with config.MAX_MEMORY set).
     Per-tile energies stay in a device buffer and are summed once, in
-    fp64, at the end (no host sync per tile)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded (T) is ROADMAP A17 (multi-GPU), not ported")
+    fp64, at the end (no host sync per tile).
+
+    mesh (parallel/mesh): t1, t2 and eris replicated on every rank; each
+    rank runs its contiguous block of the tile list (mesh_block) through
+    the same engine loop, and the fp64 block sums are summed over the
+    ranks (mesh_total), the counterpart of the reference's MPI job
+    slicing (lib/cc/ccsd_t.c:856 MPICCsd_t_contract)."""
+    if getattr(eris, "mesh", None) is not None:
+        raise ValueError("the (T) takes replicated integrals: pass the "
+                         "container as it was before shard_eris")
     if isinstance(dot_precision, str):
         dot_precision = dot_precision.lower()
     if engine == "auto":
@@ -434,17 +461,17 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
         from pyscf_mpcc_tpu_torch.lib import memory as _mem
         naux = eris.Lov.shape[0] if eris.Lov is not None else 0
         tile = _mem.plan_triples_tile(nocc, nvir, naux, dtype,
-                                      device=t2.device)
+                                      device=t2.device, engine=engine)
     big = _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
                    engine, rmode)
-    trips = _tile_triples(big["nvp"] // tile)
+    trips = mesh_block(_tile_triples(big["nvp"] // tile), mesh)
     ntrips = trips.shape[0]
     e_tiles = torch.empty(ntrips, dtype=torch.float64, device=t2.device)
     if engine == "xla":
         tile_energy = make_tile_energy(big, mode, rmode)
         for n in range(ntrips):
             e_tiles[n] = tile_energy(trips[n])
-        return 2.0 * float(e_tiles.sum())
+        return 2.0 * float(mesh_total(e_tiles, mesh))
 
     eijk, actocc3 = fused_shared(big)
     has_act = "act_occ" in big
@@ -458,7 +485,7 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
                 kw = dict(act3=out[9], actocc=actocc3, act_mode=mode)
             e_tiles[n0:n0 + len(out[0])] = tr.tile_energy_resident_chunk(
                 *out[:7], eijk, *out[7:9], mode=rmode, **kw)
-        return 2.0 * float(e_tiles.sum())
+        return 2.0 * float(mesh_total(e_tiles, mesh))
 
     prep = make_prep_fused(big)
     for n0 in range(0, ntrips, K):
@@ -468,4 +495,4 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
             kw = dict(actv=out[10], actocc=actocc3, act_mode=mode)
         e_tiles[n0:n0 + out[2].shape[0]] = tc.tile_energy_fused_chunk(
             *out[:8], eijk, *out[8:10], **kw)
-    return 2.0 * float(e_tiles.sum())
+    return 2.0 * float(mesh_total(e_tiles, mesh))

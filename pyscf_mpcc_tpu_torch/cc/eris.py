@@ -37,6 +37,10 @@ class RERIs(NamedTuple):
     # out-of-core mode (stream_vv=True, cc/stream_ladder): Lvv stays in
     # host memory in this lib/hoststore.HostStore and Lvv is None
     Lvv_stream: Optional[object] = None
+    # sharded mode (parallel/mesh.shard_eris): the parallel.mesh.Mesh
+    # whose ranks each hold an aux shard of Lvv/Lov/Loo and an occupied-row
+    # shard of ovvv; the update sums their partial contractions
+    mesh: Optional[object] = None
 
     @property
     def nocc(self):

@@ -58,6 +58,10 @@ def energy(t1, t2, eris: RERIs):
 
 def _ladder_vvvv(tau, t1, eris):
     """tau * Wvvvv from materialized (ab|cd) (Hirata chi_vvvv)."""
+    if eris.mesh is not None:
+        # ovvv in occupied-row shards over a mesh (parallel/mesh)
+        from pyscf_mpcc_tpu_torch.parallel import mesh as pmesh
+        return pmesh.ladder_vvvv(tau, t1, eris)
     w = eris.vvvv.permute(0, 2, 1, 3)  # (ac|bd) -> W[a,b,c,d]
     w = w - einsum("kdac,kb->abcd", eris.ovvv, t1)
     w = w - einsum("kcbd,ka->abcd", eris.ovvv, t1)
@@ -77,6 +81,13 @@ def _ladder_df(tau, t1, eris, ntile):
         from pyscf_mpcc_tpu_torch.cc import stream_ladder
         out = stream_ladder.pair_ladder_sym(tau, t1, eris.Lov,
                                             eris.Lvv_stream, ntile)
+    elif eris.mesh is not None:
+        # Lvv and Lov in aux shards over a mesh (parallel/mesh): each rank
+        # dresses and sweeps its shard, the partial ladders are summed
+        from pyscf_mpcc_tpu_torch.parallel.ladder_shard import ladder_sharded
+        Ld = eris.Lvv - einsum("ka,Lkc->Lac", t1, eris.Lov)
+        out = ladder_sharded(tau, Ld, eris.mesh, ntile, mirrored=True)
+        del Ld
     else:
         Ld = eris.Lvv - einsum("ka,Lkc->Lac", t1, eris.Lov)
         out = pair_ladder_sym(tau, Ld, ntile)
@@ -162,19 +173,28 @@ class _OvvvOps:
     materialized (12 GB for (H2O)8/cc-pVTZ in fp32); every use factorizes
     exactly through the 3-center L tensors."""
 
+    ROUTED = ("t1_t2_terms", "lvv_t1", "wvoov_t1", "wvovo_t1",
+              "t2_vvov_t1")
+
     def __init__(self, eris: RERIs, ntile=1):
         self.eris = eris
         self.df = eris.ovvv is None
+        route = None
         if eris.Lvv_stream is not None:
             # out-of-core: every contraction routes to the StreamedOvvv
-            # twin (same math, Lvv row tiles fetched from host memory);
-            # instance attributes shadow the class methods below
+            # twin (same math, Lvv row tiles fetched from host memory)
             from pyscf_mpcc_tpu_torch.cc import stream_ladder
-            stream = stream_ladder.StreamedOvvv(
+            route = stream_ladder.StreamedOvvv(
                 eris.Lvv_stream, eris.Lov, eris.nvir, ntile)
-            for m in ("t1_t2_terms", "lvv_t1", "wvoov_t1", "wvovo_t1",
-                      "t2_vvov_t1"):
-                setattr(self, m, getattr(stream, m))
+        elif eris.mesh is not None:
+            # sharded over a mesh: each rank contracts its shard and the
+            # partials are summed or gathered (parallel/mesh.ShardedOvvv)
+            from pyscf_mpcc_tpu_torch.parallel import mesh as pmesh
+            route = pmesh.ShardedOvvv(eris, ntile)
+        if route is not None:
+            # instance attributes shadow the class methods below
+            for m in self.ROUTED:
+                setattr(self, m, getattr(route, m))
 
     def t1_t2_terms(self, t2):
         """2*(kd|ac) t2[ikcd] - (kc|ad) t2[ikcd] -> [ia]"""

@@ -81,6 +81,10 @@ class UERIs(NamedTuple):
     Lvv_a: Optional[torch.Tensor] = None
     Lov_b: Optional[torch.Tensor] = None
     Lvv_b: Optional[torch.Tensor] = None
+    # sharded mode (parallel/mesh.shard_ueris): the parallel.mesh.Mesh
+    # whose ranks each hold an aux shard of the DF factors; the update
+    # sums their partial contractions
+    mesh: Optional[object] = None
 
     @property
     def mo_energy(self):
@@ -349,6 +353,14 @@ def _high_virtual_materialized(eris, T1, T2, tau, g_oovv):
     return Fae_hi, Wmbej_hi, t1_hi, t2_hi
 
 
+def _lsum(mesh):
+    """Blockwise sum of a spin-blocked partial L-sum over the mesh's ranks
+    (parallel/mesh), or the identity where the factors are whole."""
+    if mesh is None:
+        return lambda st: st
+    return lambda st: ST({k: mesh.psum(v) for k, v in st.b.items()})
+
+
 def _ladder_tile(tau, l1, L2):
     w = einsum("Lae,Lbf->abef", l1, L2)
     return einsum("abef,ijef->ijab", w, tau)
@@ -386,25 +398,28 @@ def _high_virtual_df(eris, t1, T1, T2, tau, g_oovv, g_oovv_dir, ntile):
     t1a, t1b = t1
     La, Ua = eris.Lov_a, eris.Lvv_a
     Lb, Ub = eris.Lov_b, eris.Lvv_b
+    # over a mesh (parallel/mesh.shard_ueris) the factors are this rank's
+    # aux shard: each L-sum below is partial and is summed over the ranks
+    lsum = _lsum(eris.mesh)
 
     # ---- Fae += sum_mf t1_mf <ma||fe> -----------------------------------
     ra = einsum("Lmf,mf->L", La, t1a)
     rb = einsum("LMF,MF->L", Lb, t1b)
     xa = einsum("Lme,mf->Lef", La, t1a)
     xb = einsum("LME,MF->LEF", Lb, t1b)
-    Fae_hi = ST({
+    Fae_hi = lsum(ST({
         "aa": (einsum("L,Lae->ae", ra + rb, Ua)
                - einsum("Lef,Laf->ae", xa, Ua)),
         "bb": (einsum("L,LAE->AE", ra + rb, Ub)
                - einsum("LEF,LAF->AE", xb, Ub)),
-    })
+    }))
 
     # ---- Wmbej += sum_f t1_jf <mb||ef> ----------------------------------
     Yaa = einsum("Lbf,jf->Ljb", Ua, t1a)    # (vv|.)t1, alpha
     Ybb = einsum("LBF,JF->LJB", Ub, t1b)
     Zaa = einsum("Lmf,jf->Lmj", La, t1a)    # (ov|.)t1, alpha
     Zbb = einsum("LMF,JF->LMJ", Lb, t1b)
-    Wmbej_hi = ST({
+    Wmbej_hi = lsum(ST({
         "aaaa": (einsum("Lme,Ljb->mbej", La, Yaa)
                  - einsum("Lmj,Lbe->mbej", Zaa, Ua)),
         "bbbb": (einsum("LME,LJB->MBEJ", Lb, Ybb)
@@ -413,7 +428,7 @@ def _high_virtual_df(eris, t1, T1, T2, tau, g_oovv, g_oovv_dir, ntile):
         "baba": einsum("LME,Ljb->MbEj", Lb, Yaa),
         "abba": -einsum("Lmj,LBE->mBEj", Zaa, Ub),
         "baab": -einsum("LMJ,Lbe->MbeJ", Zbb, Ua),
-    })
+    }))
 
     # ---- t1 += -1/2 sum_mef t2_imef <ma||ef> ----------------------------
     t2aa, t2ab, t2bb = st_t2(T2)
@@ -421,12 +436,12 @@ def _high_virtual_df(eris, t1, T1, T2, tau, g_oovv, g_oovv_dir, ntile):
     Xb = einsum("IMEF,LME->LIF", t2bb, Lb)
     Zab = einsum("iMeF,LMF->Lie", t2ab, Lb)
     Zba = einsum("mIeF,Lme->LIF", t2ab, La)
-    t1_hi = ST({
+    t1_hi = lsum(ST({
         "aa": (-einsum("Lif,Laf->ia", Xa, Ua)
                + einsum("Lie,Lae->ia", Zab, Ua)),
         "bb": (-einsum("LIF,LAF->IA", Xb, Ub)
                + einsum("LIF,LAF->IA", Zba, Ub)),
-    })
+    }))
 
     # ---- ladder: dressed factors, quadratic compensation ----------------
     Ua_d = Ua - einsum("Lme,ma->Lae", La, t1a)
@@ -440,7 +455,7 @@ def _high_virtual_df(eris, t1, T1, T2, tau, g_oovv, g_oovv_dir, ntile):
     Qcomp = seinsum("ma,nb,mnij->ijab", T1, T1, Xdir)
     Yanti = seinsum("ijef,mnef->mnij", tau, g_oovv)
     Wquad = 0.125 * seinsum("mnab,mnij->ijab", tau, Yanti)
-    t2_hi = (ST({"aaaa": Daa, "abab": Dab, "bbbb": Dbb})
+    t2_hi = (lsum(ST({"aaaa": Daa, "abab": Dab, "bbbb": Dbb}))
              - Qcomp + Wquad)
 
     # ---- t2 += P(ij) sum_e t1_ie <ab||ej> --------------------------------
@@ -448,7 +463,7 @@ def _high_virtual_df(eris, t1, T1, T2, tau, g_oovv, g_oovv_dir, ntile):
     Ab = einsum("IE,LAE->LIA", t1b, Ub)
     Ba = einsum("ie,Lbe->Lib", t1a, Ua)
     Bb = einsum("IE,LBE->LIB", t1b, Ub)
-    vvvo = ST({
+    vvvo = lsum(ST({
         "aaaa": (einsum("Lia,Ljb->ijab", Aa, La)
                  - einsum("Lja,Lib->ijab", La, Ba)),
         "bbbb": (einsum("LIA,LJB->IJAB", Ab, Lb)
@@ -457,7 +472,7 @@ def _high_virtual_df(eris, t1, T1, T2, tau, g_oovv, g_oovv_dir, ntile):
         "baab": -einsum("Lja,LIB->IjaB", La, Bb),
         "abba": -einsum("LJA,Lib->iJAb", Lb, Ba),
         "baba": einsum("LIA,Ljb->IjAb", Ab, La),
-    })
+    }))
     t2_hi = t2_hi + asym(vvvo, 0, 1)
     return Fae_hi, Wmbej_hi, t1_hi, t2_hi
 

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pyscf_mpcc_tpu_torch.cc.ccsd_t import _tile_triples
+from pyscf_mpcc_tpu_torch.cc.ccsd_t import (_tile_triples, mesh_block,
+                                            mesh_total)
 
 
 def _so_dims(eris):
@@ -255,18 +256,23 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
     factors when present (production), else the materialized three-virtual
     blocks.  act_hole/act_particle are (alpha, beta) index-array pairs.
     tiles_per_call bounded the length of one compiled TPU program; the
-    eager loop here has no such program and ignores it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded UCCSD(T) is ROADMAP A17 (multi-GPU), not "
-            "ported")
+    eager loop here has no such program and ignores it.
+
+    mesh (parallel/mesh): the amplitudes and integrals replicated on every
+    rank; each rank scans its contiguous block of the tile list and the
+    fp64 block sums are summed over the ranks (ccsd_t.mesh_block,
+    mesh_total).  The JAX package pads the list with copies of tile 0 and
+    subtracts their energy again; here no pad tile is computed."""
+    if eris.mesh is not None:
+        raise ValueError("the (T) takes replicated integrals: pass the "
+                         "container as it was before shard_ueris")
     if dtype is None:
         dtype = t2[1].dtype
     big = _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle)
-    trips = _tile_triples(big["nvp"] // tile)
+    trips = mesh_block(_tile_triples(big["nvp"] // tile), mesh)
     e_tiles = torch.empty(len(trips), dtype=torch.float64,
                           device=t2[1].device)
     tile_energy = make_tile_energy(big, mode)
     for n in range(len(trips)):
         e_tiles[n] = tile_energy(trips[n])
-    return float(e_tiles.sum()) / 6.0
+    return float(mesh_total(e_tiles, mesh)) / 6.0

@@ -56,11 +56,14 @@ def _store(state, x, err):
     return (idx < torch.clamp(state.count, max=space)).to(state.xs.dtype)
 
 
-def _gram(errs, valid, out_dtype):
+def _gram(errs, valid, out_dtype, mesh=None):
     """(space, space) Gram matrix of the error rows, invalid rows and
     columns zero.  Accumulated in fp32 (fp64 where the ring or the output
     is fp64; an fp32 matmul of bf16 rows is the JAX package's
-    preferred_element_type), chunk by chunk over the vector."""
+    preferred_element_type), chunk by chunk over the vector.  With a mesh
+    (parallel/mesh) the rows are this rank's shard of the vectors and
+    the partial dots are summed over the ranks, in the accumulation
+    dtype, before the result is rounded."""
     acc = (torch.float64 if torch.float64 in (errs.dtype, out_dtype)
            else torch.float32)
     space, n = errs.shape
@@ -69,17 +72,20 @@ def _gram(errs, valid, out_dtype):
         e = errs[:, s:s + _CHUNK].to(acc)
         g += e @ e.T
         del e
+    if mesh is not None:
+        g = mesh.psum(g)
     v = valid.to(acc)
     return (g * v[:, None] * v[None, :]).to(out_dtype)
 
 
-def push(state: DIISState, x, err):
+def push(state: DIISState, x, err, mesh=None):
     """Store (x, err); return (state, G), G the float32 (space, space)
     Gram matrix of the valid error history (invalid rows zero).  On an
     fp64 ring G is accumulated in fp64 and rounded to fp32, as the JAX
-    package's push returns it."""
+    package's push returns it.  With a mesh, x and err are this rank's
+    shards and G is the whole vectors' (see _gram)."""
     valid = _store(state, x, err)
-    return state, _gram(state.errs, valid, torch.float32)
+    return state, _gram(state.errs, valid, torch.float32, mesh)
 
 
 def extrapolate(state: DIISState, coef):
@@ -87,15 +93,21 @@ def extrapolate(state: DIISState, coef):
     return coef @ state.xs
 
 
-def update_hostsolve(state: DIISState, x, err):
+def update_hostsolve(state: DIISState, x, err, mesh=None):
     """Pulay update with the ring and the Gram products on the device and
     the small augmented B system solved on the host in fp64
     (lib/diis.solve_diis_b): an fp32 solve on the device stalls the
     iteration near |dt| ~ 1e-5, the host solve does not.  Only G (and the
-    coefficients) cross to the host."""
+    coefficients) cross to the host.
+
+    mesh (parallel/mesh): the ring holds this rank's shard of the vectors
+    (init with the shard's length), x and err are shards, and the result
+    is the extrapolated shard.  Only the partial Gram dots are summed
+    over the ranks; every rank then solves the same G, and the
+    extrapolation and the history stay on the rank."""
     from pyscf_mpcc_tpu_torch.lib.diis import solve_diis_b
 
-    state, G = push(state, x, err)
+    state, G = push(state, x, err, mesh)
     space = state.xs.shape[0]
     nd = min(int(state.count), space)
     Gh = G.cpu().numpy().astype(np.float64)[:nd, :nd]

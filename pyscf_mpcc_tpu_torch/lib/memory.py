@@ -100,13 +100,19 @@ def ccsd_working_set_bytes(nocc, nvir, naux, ntile=1, dtype="float32",
 
 
 def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
-                      max_tile=8, device=None):
-    """Tile edge for the fused CCSD(T) engine (cc/ccsd_t.kernel).
+                      max_tile=8, device=None, engine="fused"):
+    """Tile edge for the CCSD(T) engines (cc/ccsd_t.kernel).
 
     Per-tile live set: six W dot outputs of (T^3 * nocc^3) elements each
     (factor 4 for the dot workspace and the stacked prep), the six ov
-    blocks, and the persistent t2T/t2Ts/oovv_T/L tensors.  Picks the
-    largest even T <= max_tile that fits; minimum 4."""
+    blocks, and the persistent t2T/t2Ts/oovv_T/L tensors.  engine
+    'resident' adds the W1 operand that its prep makes of t2
+    (ops.triples_resident.t2_operand): a copy of t2T zero-padded on its
+    contracted axis to the MMA depth (at most 32) and on (j,k) to a
+    multiple of 8, in t2's dtype, whose bf16 parts (as many bytes in
+    'split') stay through the tile loop; while it is split, the copy, hi,
+    hi upcast and x - hi are live at once, 3.5 copies.  Picks the largest
+    even T <= max_tile that fits; minimum 4."""
     isz = _itemsize(dtype)
     budget = budget if budget is not None else hbm_budget_bytes(device)
     persistent = (3 * nvir * nvir * nocc * nocc      # t2T + t2Ts + oovv_T
@@ -115,6 +121,11 @@ def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
     best = 4
     for T in range(4, max_tile + 1, 2):
         live = (6 * T**3 * nocc**3 + 6 * T * T * nocc * nvir) * isz * 4
+        if engine == "resident":
+            nvp = -(-nvir // T) * T
+            opnd = (nvp * (-(-nvp // 32) * 32)
+                    * (-(-nocc * nocc // 8) * 8) * isz)
+            live = max(live + opnd, 7 * opnd // 2)
         if live <= avail:
             best = T
     return best

@@ -116,3 +116,30 @@ def test_cpu_budget_needs_explicit_limit(monkeypatch):
         memory.plan_ladder_ntile(5, 19, 84, device=CPU)
     monkeypatch.setattr(config, "MAX_MEMORY", 2048)
     assert memory.hbm_budget_bytes(CPU) == 2048 * 2**20
+
+
+def test_resident_triples_tile_counts_its_t2_operand():
+    """plan_triples_tile(engine='resident') counts the W1 operand that the
+    resident prep makes of t2 (ops.triples_resident.t2_operand): at the
+    (H2O)8 shape in fp32, a budget that just holds the fused engine's
+    tile 8 gives the resident engine a smaller tile, and it gets tile 8
+    once the operand's split (3.5 padded copies) fits too."""
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    no, nv, na = 32, 424, 1216
+    persistent = (3 * nv**2 * no**2 + na * nv**2 + na * no * nv) * 4
+    fused8 = (6 * 8**3 * no**3 + 6 * 8**2 * no * nv) * 4 * 4
+    # the counted copy at tile 8: t2T (424, 424, 32^2), its contracted
+    # axis padded to a multiple of 32
+    opnd8 = 424 * 448 * 1024 * 4
+    budget = persistent + fused8
+    assert memory.plan_triples_tile(no, nv, na, budget=budget) == 8
+    assert memory.plan_triples_tile(no, nv, na, budget=budget,
+                                    engine="resident") < 8
+    assert memory.plan_triples_tile(no, nv, na,
+                                    budget=persistent + 7 * opnd8 // 2,
+                                    engine="resident") == 8
+    # the count bounds what the prep keeps: the split parts of a real
+    # operand (nvp 12, o 3) against the same formula
+    t2T = torch.rand((12, 12, 9), dtype=torch.float32)
+    hi, lo = tr.t2_operand(t2T, "split")
+    assert hi.nbytes + lo.nbytes <= 12 * 32 * 16 * 4

@@ -47,7 +47,8 @@ LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
                 "cc.eom_slow", "cc.gccsdt1_slow", "cc.gccsdt_slow",
                 "mp.mp2f12", "mp.gmp2", "mp.dfgmp2", "utils.profiling",
                 "lib.linalg", "cc.eom", "cc.momgfccsd", "lib.hoststore",
-                "cc.stream_ladder")
+                "cc.stream_ladder", "parallel.mesh", "parallel.distributed",
+                "parallel.ladder_shard", "parallel.ccsd_shard")
 
 
 def test_df_slice_matches_jax_driver(monkeypatch):
@@ -168,6 +169,21 @@ def test_entry_points_default_to_cuda():
             resolve(None)
     assert resolve(torch.device("cpu")) == (torch.device("cpu"),
                                             torch.float64)
+
+
+@pytest.mark.parametrize("entry", ["initialize", "make_mesh",
+                                   "global_mesh"])
+def test_parallel_entry_points_default_to_cuda(entry):
+    """The multi-device layer's start-up resolves a missing device to the
+    card, and raises where there is none, before it looks for a process
+    group or a launcher's environment."""
+    from pyscf_mpcc_tpu_torch.parallel import distributed, mesh
+    fn = {"initialize": distributed.initialize, "make_mesh": mesh.make_mesh,
+          "global_mesh": distributed.global_mesh}[entry]
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry point would start a job")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
 
 
 def _spinorb_entry_points():

@@ -188,7 +188,7 @@ def test_kernel_active_mask_matches_jax_xla(jax_energies, name, mode,
 
 def test_unported_engines_raise():
     args = _port("df")
-    for kw in (dict(engine="flat"), dict(mesh=object()),
+    for kw in (dict(engine="flat"),
                dict(engine="fused", dot_precision="high")):
         with pytest.raises(NotImplementedError):
             ccsd_t.kernel(*args, tile=3, **kw)
@@ -198,6 +198,11 @@ def test_unported_engines_raise():
         ccsd_t.kernel(*args, tile=3, engine="fused4")
     with pytest.raises(ValueError):
         ccsd_t.kernel(*args, tile=3, engine="xla", dot_precision="tf32")
+    # the mesh (T) takes replicated integrals, never a sharded container
+    t1, t2, er = _port("df")
+    er.mesh = object()
+    with pytest.raises(ValueError, match="replicated"):
+        ccsd_t.kernel(t1, t2, er, tile=3, mesh=object())
 
 
 @pytest.mark.parametrize("prec", ["high", "default"])

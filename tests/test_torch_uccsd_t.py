@@ -115,6 +115,9 @@ def test_prepare_assembles_spin_orbital_blocks(port):
 
 
 def test_mesh_raises(port):
+    """The mesh (T) takes the replicated integrals (the mesh path itself
+    is held to JAX in tests/test_torch_parallel.py): a container sharded
+    over a mesh is refused before any tile runs."""
     ue, _, t1, t2 = port
-    with pytest.raises(NotImplementedError, match="A17"):
-        uccsd_t.kernel(t1, t2, ue, mesh=object())
+    with pytest.raises(ValueError, match="replicated"):
+        uccsd_t.kernel(t1, t2, ue._replace(mesh=object()), mesh=object())
