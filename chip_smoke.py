@@ -165,10 +165,25 @@ each, started together), then runs:
      combine and resident kernels, sharded UCCSD update, tiled update)
      and a mesh (T) whose 35 tiles the two ranks split unevenly, each
      against the same call on one rank, 1e-12.
+ 14. the (T) bf16 tiers on the fused engine (bf16_tier_phase;
+     dot_precision 'high' and 'default': each W1 dot one bf16 GEMM with
+     fp32 output, torch.mm(..., out_dtype=torch.float32), whose presence
+     is checked first, feeding the combine kernel): (a) at the bench
+     shape (phase 1's synthetic integrals, seed 0) the 64-tile probe,
+     fused 'high' and 'default' against the resident engine in modes
+     split (through engine='auto') and bf16 (rtol 1e-5) and 'high'
+     against fused full precision (5e-4), three timed runs each, fused
+     'high' at chunk 4, and one tile's six W1 GEMMs per tier with their
+     operand split; (b) at the (H2O)12/cc-pVTZ frozen-core shape (48,
+     636, 1824), past the resident kernel's shared-memory cap, the
+     16-tile probe fused full, 'high' (through engine='auto', which
+     must take the fused engine there) and 'default', and 2 tiles of
+     each tier against engine='xla' (1e-5).
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, phase 11's fp32 ones
-outside its comparisons with engine='xla' and phase 13(a)'s mesh probes, its error against the
+outside its comparisons with engine='xla', phase 13(a)'s mesh probes
+and phase 14's timed fused probes, its error against the
 plain version, its time, the plain version's time and the least time the
 card could take, from the peak rates below), the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -415,6 +430,13 @@ PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 67e12, "bf16": 989e12}
 ATOL_MESH_FP64 = 1e-12
 # the spawned ranks' time limit (s): start-up, the build check, the work
 RANK_TIMEOUT = 300
+# phase 14(b): (H2O)12/cc-pVTZ frozen core (nocc 48, nvir 636, naux 1824;
+# twelve waters, 12 x 58 = 696 basis functions, 12 O 1s frozen), past the
+# resident kernel's shared-memory cap (fp32 nocc 36)
+NOCC12, NVIR12, NAUX12, NPROBE12 = 48, 636, 1824, 16
+# the same bf16 tier on two engines: the same exact bf16 products summed
+# in fp32 in other orders, as RTOL_TILE_FP32
+RTOL_TIER = 1e-5
 
 
 def say(phase, msg, **kw):
@@ -2528,6 +2550,221 @@ def shared_card(rank, world, init_method):
         dist.destroy_process_group()
 
 
+def bf16_tier_phase(torch, smi, dev):
+    """Phase 14: the (T) bf16 tiers (dot_precision 'high' and 'default')
+    on the fused engine, whose W1 dots are one bf16 GEMM with fp32 output
+    each (torch.mm(..., out_dtype=torch.float32), K tripled for 'high')
+    feeding the combine kernel.  (a) The bench shape (phase 1's synthetic
+    integrals): the 64-tile probe through ccsd_t.kernel, fused at 'high'
+    and 'default' against the resident engine in modes split (through
+    engine='auto') and bf16 and against the fused engine at full
+    precision, three timed runs each, and fused 'high' at chunk 4; one
+    tile's six W1 GEMMs per tier and their operand split.  (b) The
+    (H2O)12/cc-pVTZ frozen-core shape, past the resident kernel's cap:
+    the 16-tile probe, fused 'high' and 'default' against fused full
+    precision and, on 2 tiles, against engine='xla' at the same tier, and
+    engine='auto' at 'high' there (the fused engine, the combine kernel's
+    count grows, the resident one's does not).  Returns the combine
+    kernel's launches in the timed probe runs, {"fused": chunk-1 runs,
+    "chunk": chunk-4 runs}; the 2-tile comparisons are counted apart."""
+    from pyscf_mpcc_tpu_torch import testing
+    from pyscf_mpcc_tpu_torch.cc import ccsd_t, rccsd
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    f32 = torch.float32
+    launches = {"fused": 0, "chunk": 0}
+
+    # the overload the bf16 GEMMs run on; no fallback if it is missing
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.rand((64, 48), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.rand((48, 80), generator=g, device=dev).to(torch.bfloat16)
+    c = torch.mm(a, b, out_dtype=torch.float32)
+    torch.testing.assert_close(c, a.float() @ b.float(), rtol=1e-5,
+                               atol=1e-5)
+    say(14, "torch.mm(bf16, bf16, out_dtype=float32) ok",
+        torch=torch.__version__, out_dtype=str(c.dtype))
+
+    def probe(t1, t2, er, ntiles, engine, reps=3, record=None, **kw):
+        """E(T) over the first ntiles tiles through ccsd_t.kernel after a
+        warm-up; reps timed runs, each with both kernels' counts zeroed
+        just before and read just after.  Returns (energy of the first
+        run, [ms a tile], combine launches, resident launches) of the
+        timed runs; the runs must agree to RTOL_TIER."""
+        orig = ccsd_t._tile_triples
+        ccsd_t._tile_triples = lambda nvt: orig(nvt)[:ntiles]
+        ms, ncomb, nres, es = [], 0, 0, []
+        try:
+            ccsd_t.kernel(t1, t2, er, tile=TILE, engine=engine, **kw)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                tc.launch_count = tr.launch_count = 0
+                t0 = time.perf_counter()
+                es.append(ccsd_t.kernel(t1, t2, er, tile=TILE,
+                                        engine=engine, **kw))
+                ms.append((time.perf_counter() - t0) / ntiles * 1e3)
+                ncomb += tc.launch_count
+                nres += tr.launch_count
+        finally:
+            ccsd_t._tile_triples = orig
+        e = es[0]
+        if not (e == e and abs(e) < float("inf")
+                and all(abs(x - e) <= RTOL_TIER * abs(e) for x in es)):
+            raise RuntimeError(f"(T) probe {engine} {kw}: energies {es}")
+        if record is not None:
+            launches[record] += ncomb
+        return e, ms, ncomb, nres
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    def fmt(ms):
+        return " ".join(f"{t:.3f}" for t in ms)
+
+    # ---- (a) the bench shape ---------------------------------------------
+    t0_ = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    er = testing.synthetic_eris(NOCC, NVIR, NAUX, device=dev, dtype=f32,
+                                generator=gen, build_ovvv=False)
+    er = er._replace(oovv=None, ovvo=None)
+    _, t1, t2 = rccsd.init_amps(er)
+    if ccsd_t.auto_engine("cuda", NOCC, f32, "split") != "resident":
+        raise RuntimeError("auto does not take 'high' to the resident "
+                           f"kernel at nocc {NOCC}")
+    res = {}
+    for name, engine, kw, rec in (
+            ("fused", "fused", {}, "fused"),
+            ("fused_high", "fused", dict(dot_precision="high"), "fused"),
+            ("fused_default", "fused", dict(dot_precision="default"),
+             "fused"),
+            ("auto_high", "auto", dict(dot_precision="high"), None),
+            ("resident_default", "resident", dict(dot_precision="default"),
+             None),
+            ("fused_high_chunk4", "fused", dict(dot_precision="high",
+                                                chunk=4), "chunk")):
+        res[name] = probe(t1, t2, er, NPROBE, engine, record=rec, **kw)
+    if not (res["auto_high"][3] > 0 and res["auto_high"][2] == 0):
+        raise RuntimeError(f"auto at 'high', nocc {NOCC}: launches "
+                           f"{res['auto_high'][2:]}, not the resident")
+    e_full = res["fused"][0]
+    gaps = {"high_vs_split": rel(res["fused_high"][0], res["auto_high"][0]),
+            "default_vs_bf16": rel(res["fused_default"][0],
+                                   res["resident_default"][0]),
+            "high_chunk4_vs_high": rel(res["fused_high_chunk4"][0],
+                                       res["fused_high"][0]),
+            "high_vs_full": rel(res["fused_high"][0], e_full),
+            "default_vs_full": rel(res["fused_default"][0], e_full),
+            "split_vs_full": rel(res["auto_high"][0], e_full)}
+    if not (max(gaps["high_vs_split"], gaps["default_vs_bf16"],
+                gaps["high_chunk4_vs_high"]) <= RTOL_TIER
+            and gaps["high_vs_full"] <= RTOL_SPLIT
+            and min(res[k][2] for k in ("fused", "fused_high",
+                                        "fused_default",
+                                        "fused_high_chunk4")) > 0):
+        raise RuntimeError(f"bf16 tiers at the bench shape: {gaps} "
+                           f"{ {k: v[0] for k, v in res.items()} }")
+    say(14, "(a) bench-shape probe ok", shape=f"o={NOCC},T={TILE},"
+        f"nvir={NVIR}", tiles=NPROBE,
+        ms_per_tile=json.dumps({k: fmt(v[1]) for k, v in res.items()}),
+        energies=json.dumps({k: repr(v[0]) for k, v in res.items()}),
+        gaps=json.dumps({k: f"{v:.3e}" for k, v in gaps.items()}),
+        rtol_tier=RTOL_TIER, rtol_high_vs_full=RTOL_SPLIT,
+        launches=json.dumps({k: v[2:] for k, v in res.items()}),
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    # one bench tile's six W1 GEMMs per tier, on operands split
+    # beforehand, and the split of its ov blocks and t2 slices
+    abc = (5, 3, 1)
+    w1 = {}
+    for prec in (None, "high", "default"):
+        mode = tc.w1_mode(prec)
+        big = ccsd_t._prepare(t1, t2, er, TILE, f32, None, None, 1.0,
+                              "fused", mode)
+        starts = [r * TILE for r in abc]
+        t2w = {"jk": big["t2T_w1"], "kj": big["t2Ts_w1"]}
+        ovf = {p: ccsd_t._ov_block(big, starts[p[0]], starts[p[1]])
+               for p in tc.PERMS}
+
+        def split(mode=mode, ovf=ovf, t2w=t2w, starts=starts):
+            return ({p: tc.w1_ov(ovf[p], mode) for p in tc.PERMS},
+                    {p: tc.w1_t2_slice(t2w[tc.W_PLAN[p]["t2"]],
+                                       starts[p[2]], TILE, mode)
+                     for p in tc.PERMS})
+
+        ops = split()
+
+        def gemms(ops=ops, prec=prec):
+            return [tc.emit_w_dot(p, ops[0][p], ops[1][p], f32, TILE, NOCC,
+                                  prec) for p in tc.PERMS]
+
+        w1[str(prec)] = (cuda_ms(torch, gemms, 10),
+                         cuda_ms(torch, split, 10) if prec else 0.0)
+        del big, t2w, ovf, ops
+    say(14, "(a) bench tile W1 GEMMs", ms_gemms_split=json.dumps(
+        {k: f"{v[0]:.4f} {v[1]:.4f}" for k, v in w1.items()}),
+        w1_gflop=f"{2 * 6 * TILE ** 3 * NOCC ** 3 * NVIR / 1e9:.1f}",
+        seconds=f"{time.perf_counter() - t0_:.1f}")
+    del er, t1, t2
+    torch.cuda.empty_cache()
+
+    # ---- (b) past the resident kernel's cap ------------------------------
+    t0_ = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    er = testing.synthetic_eris(NOCC12, NVIR12, NAUX12, device=dev,
+                                dtype=f32, generator=gen, build_ovvv=False)
+    er = er._replace(oovv=None, ovvo=None)
+    _, t1, t2 = rccsd.init_amps(er)
+    top = tr.max_nocc(f32, "split")
+    if not (top < NOCC12 and ccsd_t.auto_engine(
+            "cuda", NOCC12, f32, "split") == "fused"):
+        raise RuntimeError(f"auto at nocc {NOCC12} (resident cap {top}) "
+                           "does not pick the fused engine")
+    resb = {}
+    for name, engine, kw in (
+            ("fused", "fused", {}),
+            ("auto_high", "auto", dict(dot_precision="high")),
+            ("fused_default", "fused", dict(dot_precision="default"))):
+        resb[name] = probe(t1, t2, er, NPROBE12, engine, record="fused",
+                           **kw)
+    if not (resb["auto_high"][2] > 0 and resb["auto_high"][3] == 0):
+        raise RuntimeError(f"auto at 'high', nocc {NOCC12}: launches "
+                           f"{resb['auto_high'][2:]}, not the combine kernel")
+    xla = {}
+    for prec in ("high", "default"):
+        e_f2 = probe(t1, t2, er, 2, "fused", reps=1, dot_precision=prec)
+        e_x2 = probe(t1, t2, er, 2, "xla", reps=1, dot_precision=prec)
+        xla[prec] = (e_f2[0], e_x2[0], rel(e_f2[0], e_x2[0]), e_f2[2],
+                     e_x2[1][0])
+    e_full = resb["fused"][0]
+    gaps = {"high_vs_full": rel(resb["auto_high"][0], e_full),
+            "default_vs_full": rel(resb["fused_default"][0], e_full),
+            "high_vs_xla_2": xla["high"][2],
+            "default_vs_xla_2": xla["default"][2]}
+    if not (max(gaps["high_vs_xla_2"], gaps["default_vs_xla_2"])
+            <= RTOL_TIER and gaps["high_vs_full"] <= RTOL_SPLIT
+            and min(v[2] for v in resb.values()) > 0):
+        raise RuntimeError(f"bf16 tiers at nocc {NOCC12}: {gaps}")
+    say(14, "(b) past the resident cap ok", shape=f"o={NOCC12},T={TILE},"
+        f"nvir={NVIR12},naux={NAUX12}", resident_top_nocc=top,
+        tiles=NPROBE12,
+        ms_per_tile=json.dumps({k: fmt(v[1]) for k, v in resb.items()}),
+        energies=json.dumps({k: repr(v[0]) for k, v in resb.items()}),
+        gaps=json.dumps({k: f"{v:.3e}" for k, v in gaps.items()}),
+        rtol_tier=RTOL_TIER, rtol_high_vs_full=RTOL_SPLIT,
+        xla_2_tiles=json.dumps({k: dict(e_fused=repr(v[0]),
+                                        e_xla=repr(v[1]),
+                                        combine_launches=v[3],
+                                        xla_ms_per_tile=f"{v[4]:.1f}")
+                                for k, v in xla.items()}),
+        launches=json.dumps({k: v[2:] for k, v in resb.items()}),
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        seconds=f"{time.perf_counter() - t0_:.1f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    del er, t1, t2
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3490,6 +3727,15 @@ def main():
         launches_fp64_not_in_record=json.dumps(shared_launches),
         seconds=f"{time.perf_counter() - t1_:.1f}")
     say(13, "done", launches_in_record=json.dumps(mesh_launches),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 14: the (T) bf16 tiers on the fused engine ----------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tier_launches = bf16_tier_phase(torch, smi, dev)
+    comb_launches += tier_launches["fused"]
+    c4_launches += tier_launches["chunk"]
+    say(14, "done", launches_in_record=json.dumps(tier_launches),
         seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"

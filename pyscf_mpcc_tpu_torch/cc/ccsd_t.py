@@ -18,10 +18,12 @@ CUDA kernel of ops/triples_combine (its plain version for CPU tensors);
 'resident' runs the whole tile, W1 dots included, in the CUDA kernel of
 ops/triples_resident, so W never reaches device memory; 'xla' is the
 whole tile in plain torch (the port of the JAX package's XLA engine, the
-independent CPU oracle).  'auto' picks 'xla' for CPU tensors and, for
-CUDA tensors, 'fused' at full precision and 'resident' for the bf16
-tiers (dot_precision 'high' or 'default'), whose W1 dots only the
-resident kernel runs on the tensor cores.
+independent CPU oracle).  Each engine runs every dot_precision and, at
+one tier, computes one function.  'auto' picks (auto_engine) 'xla' for
+CPU tensors and, for CUDA tensors, 'fused' at full precision; for the
+bf16 tiers (dot_precision 'high' or 'default') 'resident' where its
+kernel holds a cell of nocc in shared memory (fp32 up to nocc 36) and
+'fused' beyond.
 """
 
 from __future__ import annotations
@@ -35,11 +37,10 @@ from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
 
 PERMS = tc.PERMS
 
-# dot_precision -> W1 mode of the resident and xla engines.  The port's
-# default (None) is full fp32 dots, TF32 off; 'high' is the JAX package's
-# bf16x3 ('split'); 'default' a single bf16 pass, opt-in.
-RESIDENT_MODES = {None: "f32", "highest": "f32", "high": "split",
-                  "default": "bf16"}
+# dot_precision -> W1 mode of every engine.  The port's default (None)
+# is full fp32 dots, TF32 off; 'high' is the JAX package's bf16x3
+# ('split'); 'default' a single bf16 pass, opt-in.
+RESIDENT_MODES = tc.W1_MODES
 
 
 def _tile_triples(nvt):
@@ -73,11 +74,13 @@ def mesh_total(e_tiles, mesh):
 def _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
              engine, rmode="f32"):
     """Padded, relaid-out tensors shared by every tile (the JAX package's
-    ``big_arrays``) plus the static sizes.  For the resident engine,
-    rmode is the W1 mode (RESIDENT_MODES): in 'split' and 'bf16' the W1
-    operand t2T_w1 is t2T split into bf16 once here, in the kernel's
-    tiled layout (tr.t2_operand), beside the fp32 t2T that the w2 and V
-    terms read."""
+    ``big_arrays``) plus the static sizes.  rmode is the W1 mode
+    (RESIDENT_MODES).  In 'split' and 'bf16' the W1 operands are split
+    into bf16 once here, beside the fp32 t2T that the w2 and V terms
+    read: for the resident engine t2T_w1, t2T in the kernel's tiled
+    layout (tr.t2_operand); for the fused engine t2T_w1 and t2Ts_w1,
+    t2T and t2Ts as f-major parts (tc.w1_t2), after which the fp32 t2Ts,
+    which only the W1 dots read, is dropped."""
     nocc, nvir = t1.shape
     dev = t2.device
     f = eris.fock
@@ -118,10 +121,14 @@ def _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
         # oovv_T[x, y, (i,j)] = (ix|jy); the swapped-pair layout
         # t2Ts[c, f, (k,j)] = t2[j, k, c, f] only feeds the fused engine's
         # canonical-emission dots (the resident kernel derives every perm
-        # from t2T alone)
+        # from t2T alone).  Split before oovv_T is made, so that the
+        # split's peak is no higher than the loop's
         if engine == "fused":
-            big["t2Ts"] = padv(t2d.permute(2, 3, 0, 1),
-                               [0, 1]).reshape(nvp, nvp, oo)
+            big["precision"] = tc.PRECISION[rmode]
+            big["t2T_w1"] = tc.w1_t2(big["t2T"], rmode)
+            big["t2Ts_w1"] = tc.w1_t2(padv(t2d.permute(2, 3, 0, 1),
+                                           [0, 1]).reshape(nvp, nvp, oo),
+                                      rmode)
         big["oovv_T"] = padv(eris.ovov.to(dtype).permute(1, 3, 0, 2),
                              [0, 1]).reshape(nvp, nvp, oo)
         if engine == "resident":
@@ -178,7 +185,7 @@ def _w1_einsum(ovb, t2z, w1mode):
 
     if w1mode == "f32":
         return dot(ovb, t2z)
-    (oh, ol), (th, tl) = tr.hilo(ovb), tr.hilo(t2z)
+    (oh, ol), (th, tl) = tc.hilo(ovb), tc.hilo(t2z)
     if w1mode == "bf16":
         return dot(oh, th)
     return dot(oh, th) + dot(oh, tl) + dot(ol, th)
@@ -257,28 +264,33 @@ def make_tile_energy(big, mode="exclude_active", w1mode="f32"):
 
 def make_prep_fused(big):
     """Per-tile prep for the fused epilogue: the six canonical-emission W
-    GEMMs (ops/triples_combine.W_PLAN) and the small per-tile slices, as
-    the argument tuple of tile_energy_fused (plus actv when masked)."""
+    GEMMs (ops/triples_combine.W_PLAN) at big['precision'] and the small
+    per-tile slices, as the argument tuple of tile_energy_fused (plus
+    actv when masked).  At the bf16 tiers the six ov blocks are split
+    once a tile (tc.w1_ov) and each t2 slice that the dots read once a
+    tile (tc.w1_t2_slice)."""
     T, o = big["T"], big["o"]
     oo = o * o
-    t2T, t2Ts, vooo, oovv_T = (big["t2T"], big["t2Ts"], big["vooo"],
-                               big["oovv_T"])
+    t2T, vooo, oovv_T = big["t2T"], big["vooo"], big["oovv_T"]
+    prec = big["precision"]
+    mode = tc.w1_mode(prec)
+    t2w = {"jk": big["t2T_w1"], "kj": big["t2Ts_w1"]}
     t1p, fvo_p, ev_p = big["t1p"], big["fvo_p"], big["ev_p"]
     act_vir = big.get("act_vir")
     dtype, dev = t2T.dtype, t2T.device
 
     def prep(abc):
         starts = tuple(int(r) * T for r in abc)
-        ovb = {(xi, yi): _ov_block(big, starts[xi], starts[yi])
-               for (xi, yi) in set((p[0], p[1]) for p in PERMS)}
-        t2T_sl = {("jk", r): t2T[s:s + T] for r, s in enumerate(starts)}
-        t2T_sl.update({("kj", r): t2Ts[s:s + T]
-                       for r, s in enumerate(starts)})
+        ovb = {(p[0], p[1]): tc.w1_ov(_ov_block(big, starts[p[0]],
+                                                 starts[p[1]]), mode)
+               for p in PERMS}
+        t2sl = {key: tc.w1_t2_slice(t2w[key[0]], starts[key[1]], T, mode)
+                for key in {(tc.W_PLAN[p]["t2"], p[2]) for p in PERMS}}
         w_list = [tc.emit_w_dot(p, ovb[(p[0], p[1])],
-                                t2T_sl[(tc.W_PLAN[p]["t2"], p[2])],
-                                dtype, T, o)
+                                t2sl[(tc.W_PLAN[p]["t2"], p[2])],
+                                dtype, T, o, prec)
                   for p in PERMS]
-        del ovb
+        del ovb, t2sl
         vooo_t = torch.stack([vooo[s:s + T].reshape(T, oo, o)
                               for s in starts])
         t2p = torch.stack([torch.stack([
@@ -396,6 +408,22 @@ def fused_shared(big):
     return eijk, actocc3
 
 
+def auto_engine(device_type, nocc, dtype, w1mode, resident_top=None):
+    """The engine that engine='auto' runs: 'xla' for CPU tensors; on
+    CUDA 'fused' at full precision (w1mode 'f32') and, at the bf16 tiers,
+    'resident' while its kernel holds a cell of nocc in shared memory and
+    'fused' beyond.  resident_top: the largest such nocc in dtype and
+    w1mode, by default the kernel's own (tr.max_nocc, which builds it);
+    decided before any launch."""
+    if device_type != "cuda":
+        return "xla"
+    if w1mode == "f32":
+        return "fused"
+    if resident_top is None:
+        resident_top = tr.max_nocc(dtype, w1mode)
+    return "resident" if nocc <= resident_top else "fused"
+
+
 def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
            act_hole=None, act_particle=None, mode="exclude_active",
            mesh=None, engine="auto", dot_precision=None, chunk=1,
@@ -407,10 +435,12 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
     contributions whose six indices are all active, 'only_active' keeps
     only those.  chunk: tiles per kernel launch in the fused and resident
     engines (the kernels' grids take the tile index as a dimension).
-    dot_precision: the W1 mode (RESIDENT_MODES: None or 'highest' full
-    dots, 'high' bf16x3, 'default' one bf16 pass) of the resident and xla
-    engines; 'fused' takes None/'highest' only (its W1 GEMMs are fp32
-    cuBLAS calls), so 'auto' on CUDA runs the bf16 tiers on 'resident'.
+    dot_precision: the W1 mode of every engine (RESIDENT_MODES: None or
+    'highest' full dots, 'high' bf16x3, 'default' one bf16 pass; the ov
+    GEMMs, w2, V and the energy stay in dtype).  On CUDA the bf16 tiers
+    take float32 (bf16 products with fp32 accumulation) in the fused and
+    resident engines, and 'auto' runs them on 'resident' where its kernel
+    holds the cell and on 'fused' beyond (auto_engine).
     tiles_per_call bounded the length of one compiled TPU program; the
     eager loop here has no such program and ignores it.  tile=0 lets
     lib/memory size the tile edge (CUDA, or with config.MAX_MEMORY set).
@@ -425,43 +455,30 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
     if getattr(eris, "mesh", None) is not None:
         raise ValueError("the (T) takes replicated integrals: pass the "
                          "container as it was before shard_eris")
-    if isinstance(dot_precision, str):
-        dot_precision = dot_precision.lower()
+    rmode = tc.w1_mode(dot_precision)
+    nocc, nvir = t1.shape
+    if dtype is None:
+        dtype = t2.dtype
+    if (t2.device.type == "cuda" and rmode != "f32" and engine != "xla"
+            and dtype != torch.float32):
+        raise ValueError(
+            f"dot_precision={dot_precision!r}: the kernels take float32 "
+            f"for the bf16 tiers (bf16 products, fp32 accumulation), not "
+            f"{dtype}; use dot_precision=None or 'highest'")
     if engine == "auto":
-        if t2.device.type != "cuda":
-            engine = "xla"
-        elif RESIDENT_MODES.get(dot_precision) in ("split", "bf16"):
-            engine = "resident"
-        else:
-            engine = "fused"
+        engine = auto_engine(t2.device.type, nocc, dtype, rmode)
     if engine == "flat":
         raise NotImplementedError(
             "engine='flat' is a TPU lane-padding layout and is not ported")
     if engine not in ("fused", "resident", "xla"):
         raise ValueError(f"unknown (T) engine {engine!r}; use 'fused', "
                          "'resident', 'xla' or 'auto'")
-    rmode = "f32"
-    if engine == "fused":
-        if dot_precision in ("high", "default"):
-            raise NotImplementedError(
-                f"dot_precision={dot_precision!r}: the fused engine's W1 "
-                "GEMMs run in full fp32 only; engine='resident' runs the "
-                "bf16 tiers on the tensor cores")
-        tc._check_precision(dot_precision)
-    elif dot_precision not in RESIDENT_MODES:
-        raise ValueError(f"dot_precision={dot_precision!r}: the {engine} "
-                         "engine takes None, 'highest', 'high' or "
-                         "'default'")
-    else:
-        rmode = RESIDENT_MODES[dot_precision]
-    nocc, nvir = t1.shape
-    if dtype is None:
-        dtype = t2.dtype
     if not tile:
         from pyscf_mpcc_tpu_torch.lib import memory as _mem
         naux = eris.Lov.shape[0] if eris.Lov is not None else 0
         tile = _mem.plan_triples_tile(nocc, nvir, naux, dtype,
-                                      device=t2.device, engine=engine)
+                                      device=t2.device, engine=engine,
+                                      dot_precision=dot_precision)
     big = _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
                    engine, rmode)
     trips = mesh_block(_tile_triples(big["nvp"] // tile), mesh)

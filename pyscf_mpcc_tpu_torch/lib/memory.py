@@ -100,7 +100,8 @@ def ccsd_working_set_bytes(nocc, nvir, naux, ntile=1, dtype="float32",
 
 
 def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
-                      max_tile=8, device=None, engine="fused"):
+                      max_tile=8, device=None, engine="fused",
+                      dot_precision=None):
     """Tile edge for the CCSD(T) engines (cc/ccsd_t.kernel).
 
     Per-tile live set: six W dot outputs of (T^3 * nocc^3) elements each
@@ -111,21 +112,41 @@ def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
     contracted axis to the MMA depth (at most 32) and on (j,k) to a
     multiple of 8, in t2's dtype, whose bf16 parts (as many bytes in
     'split') stay through the tile loop; while it is split, the copy, hi,
-    hi upcast and x - hi are live at once, 3.5 copies.  Picks the largest
-    even T <= max_tile that fits; minimum 4."""
+    hi upcast and x - hi are live at once, 3.5 copies.  engine 'fused' at
+    a bf16 dot_precision ('high', 'default') keeps the bf16 parts of t2T
+    and t2Ts (ops.triples_combine.w1_t2: hi and lo in 'high', hi in
+    'default'; in 'high' one fp32 copy's bytes a layout) and drops the
+    fp32 t2Ts: t2T, the parts and oovv_T through the loop, t2T, t2Ts and
+    the parts while t2Ts is split (oovv_T is made after), plus the split's
+    f-chunk temporaries (hi upcast and x - hi); a tile adds the split ov
+    blocks (tc.w1_ov, K = 3F in 'high') and up to four t2 slices
+    (tc.w1_t2_slice).  Picks the largest even T <= max_tile that fits;
+    minimum 4."""
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
     isz = _itemsize(dtype)
     budget = budget if budget is not None else hbm_budget_bytes(device)
-    persistent = (3 * nvir * nvir * nocc * nocc      # t2T + t2Ts + oovv_T
-                  + naux * nvir * nvir + naux * nocc * nvir) * isz
+    o2v2 = nvir * nvir * nocc * nocc
+    mode = tc.w1_mode(dot_precision)
+    bf16_fused = engine == "fused" and mode != "f32"
+    if bf16_fused:
+        nparts = 2 if mode == "split" else 1
+        t2like = (2 * isz + 2 * nparts * 2 + 2 * isz / tc.T2_SPLIT_CHUNKS)
+    else:
+        t2like = 3 * isz                               # t2T + t2Ts + oovv_T
+    persistent = (t2like * o2v2
+                  + (naux * nvir * nvir + naux * nocc * nvir) * isz)
     avail = max(budget - persistent, budget // 8)
     best = 4
     for T in range(4, max_tile + 1, 2):
         live = (6 * T**3 * nocc**3 + 6 * T * T * nocc * nvir) * isz * 4
+        nvp = -(-nvir // T) * T
         if engine == "resident":
-            nvp = -(-nvir // T) * T
             opnd = (nvp * (-(-nvp // 32) * 32)
                     * (-(-nocc * nocc // 8) * 8) * isz)
             live = max(live + opnd, 7 * opnd // 2)
+        if bf16_fused:
+            k = 3 if mode == "split" else 1
+            live += (6 * T * T * nocc + 4 * T * nocc * nocc) * k * nvp * 2
         if live <= avail:
             best = T
     return best

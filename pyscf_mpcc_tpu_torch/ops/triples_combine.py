@@ -3,7 +3,8 @@
 Port of ``pyscf_mpcc_tpu/ops/triples_combine.py``.  A (T) tile is
 
     (a) six W1 contractions  w1_p = sum_f (ix|fy) t2[k,j,z,f]  (GEMMs, in
-        emit_w_dot, outside the kernel), and
+        emit_w_dot, outside the kernel, at the W1 precision of
+        ``W1_MODES``), and
     (b) the joint-permutation epilogue  W = sum_p P_p (w1_p - w2_p),
         V = W + sum_p P_p v_p, Z = 4V + V(jki) + V(kij) - 2V(kji)
         - 2V(ikj) - 2V(jik), e = sum W * Z / D * weight.
@@ -18,6 +19,18 @@ tensors launch the kernel or raise.
 The kernel's tile index is a grid dimension, so the per-tile entry
 (``tile_energy_fused``) and the K-tile chunk entry
 (``tile_energy_fused_chunk``) are one launch with K = 1 or K > 1.
+
+W1 precision.  dot_precision None or 'highest' runs the W1 GEMMs in the
+working dtype (fp32 with TF32 off on the card).  The bf16 tiers compute
+the JAX package's explicit bf16 functions (``ops/triples_resident.py``
+``hilo`` and ``_dot3``): 'high' is hi.hi + hi.lo + lo.hi of bf16
+(hi, lo) operand parts, 'default' hi.hi alone, the products summed in the
+working dtype.  On the card each W1 product is then one bf16 GEMM with
+fp32 output (``torch.mm(..., out_dtype=torch.float32)``), the K axis
+tripled for 'high': [oh | oh | ol] . [th ; tl ; th].  The operands are
+split once: t2 once a call (``w1_t2``, f-major parts), each ov block once
+a tile (``w1_ov``).  The combine kernel reads the same W_PLAN streams at
+every tier; its w2, V and energy math stay in the working dtype.
 """
 
 from __future__ import annotations
@@ -53,6 +66,15 @@ PHASES = ("setup", "w_build", "w2_dots", "v_staging", "orbit", "block_sum")
 
 _ACT_MODES = {None: 0, "exclude_active": 1, "only_active": 2}
 
+# dot_precision -> W1 mode: None/'highest' full dots in the working
+# dtype, 'high' the bf16x3 split, 'default' one bf16 pass; and back
+W1_MODES = {None: "f32", "highest": "f32", "high": "split",
+            "default": "bf16"}
+PRECISION = {"f32": None, "split": "high", "bf16": "default"}
+# f-chunks of the t2 split (w1_t2): its temporaries stay this fraction
+# of a t2 copy
+T2_SPLIT_CHUNKS = 16
+
 
 _ORBITS = {}
 
@@ -74,26 +96,129 @@ def orbit_table(o, device):
     return _ORBITS[key]
 
 
-def _check_precision(precision):
-    if precision not in (None, "highest"):
-        raise NotImplementedError(
-            f"precision={precision!r}: the port runs full fp32/fp64 dots "
-            "only; TF32 tiers are ROADMAP work")
+def w1_mode(precision):
+    """The W1 mode ('f32', 'split' or 'bf16') of a dot_precision."""
+    if isinstance(precision, str):
+        precision = precision.lower()
+    if precision not in W1_MODES:
+        raise ValueError(f"dot_precision={precision!r}: takes None, "
+                         "'highest', 'high' or 'default'")
+    return W1_MODES[precision]
+
+
+def hilo(x):
+    """bf16 (hi, lo) split such that hi + lo ~ x to ~16 mantissa bits —
+    the operand decomposition of XLA's HIGH (bf16x3) matmul precision."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(x.dtype)).to(torch.bfloat16)
+    return hi, lo
+
+
+def w1_ov(ov, mode):
+    """ov blocks (..., F) as emit_w_dot's W1 operand in mode: ov itself
+    in 'f32'; else bf16 [oh | oh | ol] along F ('split') or oh ('bf16'),
+    the left factor of the tripled-K product."""
+    if mode == "f32":
+        return ov
+    hi, lo = hilo(ov)
+    return hi if mode == "bf16" else torch.cat([hi, hi, lo], -1)
+
+
+def w1_t2(t2T, mode):
+    """The persistent t2 layout (S, F, N) as the W1 operand store of
+    mode: t2T itself in 'f32'; else its bf16 parts f-major, (P F, S, N)
+    with [hi ; lo] (P = 2, 'split') or hi (P = 1, 'bf16'), split in
+    T2_SPLIT_CHUNKS f-chunks so that the temporaries stay small."""
+    if mode == "f32":
+        return t2T
+    S, f, n = t2T.shape
+    nparts = 2 if mode == "split" else 1
+    out = torch.empty((nparts * f, S, n), dtype=torch.bfloat16,
+                      device=t2T.device)
+    step = -(-f // T2_SPLIT_CHUNKS)
+    for f0 in range(0, f, step):
+        f1 = min(f0 + step, f)
+        x = t2T[:, f0:f1].transpose(0, 1)
+        hi = out[f0:f1]
+        hi.copy_(x)
+        if nparts == 2:
+            out[f + f0:f + f1].copy_(x - hi.to(x.dtype))
+    return out
+
+
+def w1_t2_slice(t2w, s, T, mode):
+    """The z-slice [s, s + T) of a w1_t2 store as emit_w_dot's W1
+    operand: the (T, F, N) slice in 'f32'; else a (K, T N) bf16 matrix,
+    [th ; tl ; th] (K = 3F, a copy) in 'split', th (K = F, a view) in
+    'bf16'."""
+    if mode == "f32":
+        return t2w[s:s + T]
+    x = t2w[:, s:s + T]
+    if mode == "bf16":
+        return x.flatten(1)
+    f = x.shape[0] // 2
+    return torch.cat([x[:f], x[f:], x[:f]]).flatten(1)
+
+
+def _emitted(p, w, T, o):
+    """A W1 product in its canonical-emission layout: ov_first products
+    come as (x, y, i, z, (P1 P2)) and only split their axes; t2_first
+    products come as (z, (P1 P2), x, y, i) and move the pair before i."""
+    if W_PLAN[p]["order"] == "ov_first":
+        return w.reshape(T, T, o, T, o, o)
+    return w.reshape(T, o * o, T, T, o).permute(0, 2, 3, 1, 4) \
+        .contiguous().view(T, T, T, o, o, o)
 
 
 def emit_w_dot(p, ovb, t2op, dtype, T, o, precision=None):
     """The perm-p W1 dot in its canonical-emission form (see W_PLAN).
 
-    ovb: (x, y, i', f) block; t2op: (z, f, pair) slice in the layout
-    W_PLAN[p]['t2'].  Returns a contiguous (x, y, i, z, P1, P2) array
-    (ov_first) or (z, x, y, P1, P2, i) array (t2_first)."""
-    _check_precision(precision)
-    if W_PLAN[p]["order"] == "ov_first":
-        w = torch.tensordot(ovb.to(dtype), t2op.to(dtype), dims=([3], [1]))
-        return w.reshape(T, T, o, T, o, o)
-    w = torch.tensordot(t2op.to(dtype), ovb.to(dtype), dims=([1], [3]))
-    # (z, (P1 P2), x, y, i) -> (z, x, y, (P1 P2), i)
-    return w.permute(0, 2, 3, 1, 4).contiguous().view(T, T, T, o, o, o)
+    Full precision (None, 'highest'): ovb is the (x, y, i', f) block and
+    t2op the (z, f, pair) slice in the layout W_PLAN[p]['t2'], in the
+    working dtype.  bf16 tiers ('high', 'default'): ovb is w1_ov of the
+    block, (x, y, i', K), and t2op w1_t2_slice of the slice, (K, z pair),
+    in bf16.  Returns a contiguous (x, y, i, z, P1, P2) array (ov_first)
+    or (z, x, y, P1, P2, i) array (t2_first) in dtype.  CPU tensors take
+    the plain version at the bf16 tiers (emit_w_dot_reference); CUDA
+    tensors one bf16 GEMM with fp32 output, so dtype must be float32."""
+    mode = w1_mode(precision)
+    ov_first = W_PLAN[p]["order"] == "ov_first"
+    if mode == "f32":
+        if ov_first:
+            w = torch.tensordot(ovb.to(dtype), t2op.to(dtype),
+                                dims=([3], [1]))
+        else:
+            w = torch.tensordot(t2op.to(dtype), ovb.to(dtype),
+                                dims=([1], [3]))
+        return _emitted(p, w, T, o)
+    if ovb.device.type == "cpu":
+        return emit_w_dot_reference(p, ovb, t2op, dtype, T, o, precision)
+    if dtype != torch.float32:
+        raise ValueError(f"dot_precision={precision!r} on the card: bf16 "
+                         f"products with fp32 output, not {dtype}")
+    a = ovb.reshape(T * T * o, -1)
+    if ov_first:
+        w = torch.mm(a, t2op, out_dtype=torch.float32)
+    else:
+        w = torch.mm(t2op.T, a.T, out_dtype=torch.float32)
+    return _emitted(p, w, T, o)
+
+
+def emit_w_dot_reference(p, ovb, t2op, dtype, T, o, precision):
+    """Plain version of emit_w_dot at a bf16 tier, on any device: the
+    products of the bf16 parts (oh th, oh tl, ol th for 'high'; oh th for
+    'default') in dtype, summed in that order, as the JAX package's
+    _dot3."""
+    nparts = 3 if w1_mode(precision) == "split" else 1
+    f = t2op.shape[0] // nparts
+    w = None
+    for a, b in zip(ovb.split(f, -1), t2op.split(f, 0)):
+        if W_PLAN[p]["order"] == "ov_first":
+            d = torch.tensordot(a.to(dtype), b.to(dtype), dims=([3], [0]))
+        else:
+            d = torch.tensordot(b.to(dtype), a.to(dtype), dims=([0], [3]))
+        w = d if w is None else w + d
+    return _emitted(p, w, T, o)
 
 
 # --------------------------------------------------------------------------
@@ -318,7 +443,10 @@ def _check_options(interpret, kern_precision, flat):
     if flat:
         raise NotImplementedError(
             "flat=True is the TPU lane-padding layout; not ported")
-    _check_precision(kern_precision)
+    if w1_mode(kern_precision) != "f32":
+        raise ValueError(f"kern_precision={kern_precision!r}: the kernel's "
+                         "w2, V and energy math run in the working dtype; "
+                         "pass None or 'highest'")
 
 
 def tile_energy_fused_chunk(w_list, vooo_t, t2p, oovv_t, t1_t, fvo_t,

@@ -40,7 +40,7 @@ import ctypes
 import torch
 
 from pyscf_mpcc_tpu_torch.ops.triples_combine import (
-    _ACT_MODES, PAIRS as PAIRS9, PERMS, orbit_table)
+    _ACT_MODES, PAIRS as PAIRS9, PERMS, hilo, orbit_table)
 
 # ordered (x, y) role pairs consumed by the W1 dots / ov blocks; the
 # t2p/oovv stacks are indexed by all ordered role pairs, PAIRS9
@@ -55,14 +55,6 @@ MMA_KC = {"split": 16, "bf16": 32}
 
 # kernel launches made by the wrappers (CUDA tensors only)
 launch_count = 0
-
-
-def hilo(x):
-    """bf16 (hi, lo) split such that hi + lo ~ x to ~16 mantissa bits —
-    the operand decomposition of XLA's HIGH (bf16x3) matmul precision."""
-    hi = x.to(torch.bfloat16)
-    lo = (x - hi.to(x.dtype)).to(torch.bfloat16)
-    return hi, lo
 
 
 def _pad(x, axis, n):
@@ -242,10 +234,17 @@ def _lib():
     return lib
 
 
-def _max_nocc(lib, itemsize, mode):
-    """The largest nocc whose W and staging fit the shared memory."""
-    o, top = 1, lib.triples_resident_smem_max()
-    while lib.triples_resident_smem_bytes(o + 1, itemsize, mode) <= top:
+def max_nocc(dtype, mode, smem_bytes=None, smem_max=None):
+    """The largest nocc whose cell (W and the GEMM staging) the kernel
+    holds in a block's shared memory in dtype and W1 mode, by the
+    kernel's own size function smem_bytes(o, itemsize, MODES[mode]) and
+    limit smem_max, both the built library's unless given."""
+    if smem_bytes is None:
+        lib = _lib()
+        smem_bytes = lib.triples_resident_smem_bytes
+        smem_max = lib.triples_resident_smem_max()
+    o = 1
+    while smem_bytes(o + 1, dtype.itemsize, MODES[mode]) <= smem_max:
         o += 1
     return o
 
@@ -317,12 +316,13 @@ def _launch(t2sl, ovbl, vooo_t, t2p, oovv_t, t1_t, fvo_t, eijk, eabc3, wgt3,
     need = lib.triples_resident_smem_bytes(o, dtype.itemsize, MODES[mode])
     smem_max = lib.triples_resident_smem_max()
     if need > smem_max:
-        top = _max_nocc(lib, dtype.itemsize, MODES[mode])
+        top = max_nocc(dtype, mode)
         raise NotImplementedError(
             f"nocc={o} in {dtype}, mode {mode!r}: the cell's W and the "
             f"GEMM staging need {need} bytes of shared memory, over the "
             f"{smem_max} a block may use ({dtype} in mode {mode!r} runs "
-            f"up to nocc {top}); use the fused engine")
+            f"up to nocc {top}); ccsd_t.kernel(engine='fused') runs every "
+            "mode at this nocc, and engine='auto' picks it here")
     # device addresses of each tile's W1 operands, (K, 18): the hi (or
     # only) parts of the 3 t2 slices and 6 ov blocks, then the lo parts
     # (0 unless split).  The slices are read in place (views of the

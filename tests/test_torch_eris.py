@@ -143,3 +143,37 @@ def test_resident_triples_tile_counts_its_t2_operand():
     t2T = torch.rand((12, 12, 9), dtype=torch.float32)
     hi, lo = tr.t2_operand(t2T, "split")
     assert hi.nbytes + lo.nbytes <= 12 * 32 * 16 * 4
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_fused_triples_tile_counts_its_bf16_parts(prec):
+    """plan_triples_tile(engine='fused', dot_precision='high'|'default')
+    counts the bf16 parts of t2T and t2Ts that the fused prep keeps
+    (ops.triples_combine.w1_t2) and what is live while t2Ts is split: at
+    the (H2O)8 shape in fp32, a budget that just holds full-precision
+    tile 8 gives 'high' (one fp32 copy's bytes a layout of parts) a
+    smaller tile; with one more t2 copy of room (and the split's chunk
+    temporaries and the per-tile operands) it gets tile 8 again.
+    'default' keeps hi only, as many bytes as the dropped fp32 t2Ts, so
+    it fits where full precision does once the per-tile operands do."""
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    no, nv, na = 32, 424, 1216
+    o2v2 = nv**2 * no**2
+    persistent = (3 * o2v2 + na * nv**2 + na * no * nv) * 4
+    fused8 = (6 * 8**3 * no**3 + 6 * 8**2 * no * nv) * 4 * 4
+    budget = persistent + fused8
+    assert memory.plan_triples_tile(no, nv, na, budget=budget) == 8
+    k = 3 if prec == "high" else 1
+    tile_ops = (6 * 8 * 8 * no + 4 * 8 * no * no) * k * nv * 2
+    chunk_tmp = 2 * 4 * o2v2 // tc.T2_SPLIT_CHUNKS + 1
+    more = (o2v2 * 4 if prec == "high" else 0) + chunk_tmp + tile_ops
+    if prec == "high":
+        assert memory.plan_triples_tile(no, nv, na, budget=budget,
+                                        dot_precision=prec) < 8
+    assert memory.plan_triples_tile(no, nv, na, budget=budget + more,
+                                    dot_precision=prec) == 8
+    # the count bounds what the prep keeps: w1_t2's parts of a real t2
+    # layout against one fp32 copy (two bf16 parts) or half of one
+    t2T = torch.rand((12, 12, 9), dtype=torch.float32)
+    parts = tc.w1_t2(t2T, tc.w1_mode(prec))
+    assert parts.nbytes == t2T.nbytes * (1 if prec == "high" else 0.5)

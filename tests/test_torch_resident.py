@@ -14,6 +14,11 @@ engine='resident') against the JAX package.
   ccsd_t.kernel(engine='resident', dot_precision=...) on incore and DF
   problems, the tile=4/nvir=7 padding case, vfac=2 and the act masks;
   and against the port's own 'xla' engine.
+- The port's fused engine at the bf16 tiers against the same JAX
+  resident energies (mode 'split' for 'high', 'bf16' for 'default').
+- engine='auto''s routing (ccsd_t.auto_engine): the resident kernel for
+  the bf16 tiers while it holds a cell of nocc in shared memory, by its
+  own size function (transliterated here), the fused engine beyond.
 
 fp64 on both sides; rtol 1e-10 / atol 1e-13 (summation order only: the
 bf16 products are exact in fp64 on both sides, so the tolerance holds in
@@ -251,6 +256,50 @@ def test_kernel_matches_jax_resident(jax_energies, case):
     e = ccsd_t.kernel(*_port(name), tile=tile, engine="resident",
                       dot_precision=prec, **_case_kw(act, vfac))
     np.testing.assert_allclose(e, ref, rtol=RTOL, atol=ATOL)
+
+
+BF16_CASES = [c for c in ENGINE_CASES if c[2] in ("high", "default")]
+
+
+@pytest.mark.parametrize("case", BF16_CASES,
+                         ids=["-".join(map(str, c)) for c in BF16_CASES])
+def test_fused_bf16_tiers_match_jax_resident(jax_energies, case):
+    """ccsd_t.kernel(engine='fused') at 'high'/'default' returns the JAX
+    package's bf16x3 / bf16 function (its resident engine in interpret
+    mode, mode 'split' / 'bf16')."""
+    name, tile, prec, act, vfac = case
+    e = ccsd_t.kernel(*_port(name), tile=tile, engine="fused",
+                      dot_precision=prec, **_case_kw(act, vfac))
+    np.testing.assert_allclose(e, jax_energies[case], rtol=RTOL, atol=ATOL)
+
+
+# the resident kernel's dynamic shared memory in modes split and bf16
+# (smem_bytes of csrc/triples_resident.cu with triples_epilogue.cuh's
+# w_bytes and kSmemDynMax): padded W, then max(ring stages, 6 o^2 values)
+SMEM_DYN_MAX, STAGE_BYTES, MAX_STAGES = 232448 - 1024, 36864, 2
+
+
+def _resident_smem_bytes(o, itemsize, mode_code):
+    assert mode_code != tr.MODES["f32"]        # the MMA modes' staging
+    w = -(-o * (o * (o + 1) + 1) * itemsize // 128) * 128
+    stages = min(max((SMEM_DYN_MAX - w) // STAGE_BYTES, 0), MAX_STAGES)
+    return w + max(max(stages, 1) * STAGE_BYTES, 6 * o * o * itemsize)
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("nocc,engine", [
+    (5, "resident"), (32, "resident"), (36, "resident"), (37, "fused"),
+    (40, "fused"), (48, "fused"), (64, "fused")])
+def test_auto_routes_bf16_tiers_by_the_resident_cap(mode, nocc, engine):
+    top = tr.max_nocc(torch.float32, mode, _resident_smem_bytes,
+                      SMEM_DYN_MAX)
+    assert top == 36
+    assert ccsd_t.auto_engine("cuda", nocc, torch.float32, mode,
+                              top) == engine
+    assert ccsd_t.auto_engine("cuda", nocc, torch.float32, "f32",
+                              top) == "fused"
+    assert ccsd_t.auto_engine("cpu", nocc, torch.float32, mode,
+                              top) == "xla"
 
 
 @pytest.mark.parametrize("chunk", [1, 4])

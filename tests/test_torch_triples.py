@@ -12,6 +12,12 @@ against the JAX package.
 - dot_precision 'high' (bf16x3) and 'default' (bf16) off the resident
   engine: the 'xla' engine against the resident engine's plain version,
   and 'high' against the JAX 'xla' engine at full precision.
+- The fused engine at the bf16 tiers: emit_w_dot's plain form on the
+  split operands (tc.w1_ov, tc.w1_t2, tc.w1_t2_slice) against the JAX
+  package's explicit bf16 product (triples_resident.hilo and _dot3 in
+  mode 'split' or 'bf16') for every perm, and ccsd_t.kernel(engine=
+  'fused') against the port's resident and 'xla' engines at the same
+  tier.
 
 fp64 on both sides; tolerance rtol 1e-10 / atol 1e-13 (summation order).
 """
@@ -27,6 +33,7 @@ import torch
 
 from pyscf_mpcc_tpu.cc import ccsd_t as jccsd_t
 from pyscf_mpcc_tpu.ops import triples_combine as jtc
+from pyscf_mpcc_tpu.ops import triples_resident as jtr
 from pyscf_mpcc_tpu_torch import convert, testing
 from pyscf_mpcc_tpu_torch.cc import ccsd_t
 from pyscf_mpcc_tpu_torch.cc.driver import CCSD
@@ -148,6 +155,41 @@ def test_emit_w_dot_matches_jax():
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("p", tc.PERMS)
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_emit_w_dot_bf16_tiers_match_jax_dot3(prec, p):
+    """emit_w_dot's plain form on the fused prep's split operands equals
+    the JAX package's bf16 product (hilo, then _dot3 in mode 'split':
+    hi.hi + hi.lo + lo.hi, or 'bf16': hi.hi, each product exact in
+    fp64), in emit_w_dot's output layout."""
+    mode = tc.w1_mode(prec)
+    rng = np.random.default_rng(4)
+    T, o, nvp = 3, 4, 6
+    ovb = rng.standard_normal((T, T, o, nvp))
+    t2T = rng.standard_normal((2 * T, nvp, o * o))
+    t2op = t2T[T:]
+    jov, jt2 = jtr.hilo(jnp.asarray(ovb)), jtr.hilo(jnp.asarray(t2op))
+    if mode == "bf16":
+        jov, jt2 = jov[0], jt2[0]
+    if tc.W_PLAN[p]["order"] == "ov_first":
+        ref = jtr._dot3(jov, jt2, mode, jnp.float64, 3, 1).reshape(
+            T, T, o, T, o, o)
+    else:
+        ref = jnp.transpose(jtr._dot3(jt2, jov, mode, jnp.float64, 1, 3),
+                            (0, 2, 3, 1, 4)).reshape(T, T, T, o, o, o)
+    a = tc.w1_ov(torch.tensor(ovb), mode)
+    b = tc.w1_t2_slice(tc.w1_t2(torch.tensor(t2T), mode), T, T, mode)
+    assert a.dtype == b.dtype == torch.bfloat16
+    out = tc.emit_w_dot(p, a, b, torch.float64, T, o, prec)
+    assert out.dtype == torch.float64 and out.is_contiguous()
+    np.testing.assert_allclose(convert.to_numpy(out), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+    # and differs from the full-precision dot: the rounding took effect
+    full = tc.emit_w_dot(p, torch.tensor(ovb), torch.tensor(t2op),
+                         torch.float64, T, o)
+    assert not torch.allclose(out, full, rtol=1e-6, atol=0)
+
+
 @pytest.fixture(scope="module")
 def jax_energies():
     """JAX ccsd_t.kernel(engine='xla') per (problem, tile, mode)."""
@@ -188,12 +230,8 @@ def test_kernel_active_mask_matches_jax_xla(jax_energies, name, mode,
 
 def test_unported_engines_raise():
     args = _port("df")
-    for kw in (dict(engine="flat"),
-               dict(engine="fused", dot_precision="high")):
-        with pytest.raises(NotImplementedError):
-            ccsd_t.kernel(*args, tile=3, **kw)
-    with pytest.raises(NotImplementedError, match="resident"):
-        ccsd_t.kernel(*args, tile=3, engine="fused", dot_precision="default")
+    with pytest.raises(NotImplementedError):
+        ccsd_t.kernel(*args, tile=3, engine="flat")
     with pytest.raises(ValueError):
         ccsd_t.kernel(*args, tile=3, engine="fused4")
     with pytest.raises(ValueError):
@@ -224,6 +262,65 @@ def test_bf16_tiers_off_the_resident_engine(jax_energies, prec):
     if prec == "high":
         np.testing.assert_allclose(e_x, jax_energies[("df", 3, None)],
                                    rtol=5e-4, atol=0)
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("tile", [3, 4])
+@pytest.mark.parametrize("name", list(PROBLEMS))
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_fused_engine_runs_bf16_tiers(prec, name, tile, chunk):
+    """The fused engine at a bf16 tier computes the function of the
+    resident and 'xla' engines at that tier (fp64: the bf16 products are
+    exact, so only the summation order differs)."""
+    args = _port(name)
+    e_f = ccsd_t.kernel(*args, tile=tile, engine="fused", chunk=chunk,
+                        dot_precision=prec)
+    e_r = ccsd_t.kernel(*args, tile=tile, engine="resident",
+                        dot_precision=prec)
+    e_x = ccsd_t.kernel(*args, tile=tile, engine="xla", dot_precision=prec)
+    np.testing.assert_allclose(e_f, e_r, rtol=1e-10, atol=0)
+    np.testing.assert_allclose(e_f, e_x, rtol=1e-10, atol=0)
+    assert e_f != ccsd_t.kernel(*args, tile=tile, engine="fused")
+
+
+@pytest.mark.parametrize("mode", MODES[1:])
+def test_fused_bf16_tier_active_mask(mode):
+    args = _port("df")
+    e_f = ccsd_t.kernel(*args, tile=3, engine="fused", mode=mode,
+                        dot_precision="high", **ACT)
+    e_x = ccsd_t.kernel(*args, tile=3, engine="xla", mode=mode,
+                        dot_precision="high", **ACT)
+    np.testing.assert_allclose(e_f, e_x, rtol=1e-10, atol=ATOL)
+
+
+def test_fused_bf16_prep_keeps_split_t2_only():
+    """At a bf16 tier the fused prep keeps t2T's and t2Ts' bf16 parts
+    (f-major, [hi ; lo] in 'high', hi in 'default') and no fp32 t2Ts;
+    the parts equal hilo of the fp32 layouts."""
+    t1, t2, er = _port("df")
+    full = ccsd_t._prepare(t1, t2, er, 3, torch.float64, None, None, 1.0,
+                           "fused")
+    for prec in ("high", "default"):
+        mode = tc.w1_mode(prec)
+        big = ccsd_t._prepare(t1, t2, er, 3, torch.float64, None, None, 1.0,
+                              "fused", mode)
+        assert big["precision"] == prec
+        # t2T and oovv_T are the only fp64 tensors of t2's size left
+        assert [k for k, x in big.items() if isinstance(x, torch.Tensor)
+                and x.dtype == torch.float64
+                and x.shape == big["t2T"].shape] == ["t2T", "oovv_T"]
+        for key, ref in (("t2T_w1", full["t2T_w1"]),
+                         ("t2Ts_w1", full["t2Ts_w1"])):
+            hi, lo = tc.hilo(ref.transpose(0, 1))
+            want = torch.cat([hi, lo]) if mode == "split" else hi
+            assert big[key].dtype == torch.bfloat16
+            assert torch.equal(big[key], want)
+        # an f axis that the split's chunks do not divide
+        x = torch.rand((5, 2 * tc.T2_SPLIT_CHUNKS + 3, 4),
+                       dtype=torch.float64) - 0.5
+        hi, lo = tc.hilo(x.transpose(0, 1))
+        assert torch.equal(tc.w1_t2(x, mode), torch.cat([hi, lo])
+                           if mode == "split" else hi)
 
 
 def test_pinned_e_t():

@@ -6,7 +6,10 @@ the card with ``python -m pytest tests/test_torch_triples_gpu.py -o addopts=''
 not have).
 Inputs are prepared by the port's own fused prep (cc/ccsd_t.make_prep_fused)
 from seeded numpy problems, so the kernel sees the W_PLAN layouts the
-(T) driver hands it.
+(T) loop hands it.  The fused engine's bf16 tiers (dot_precision 'high'
+and 'default': one bf16 GEMM with fp32 output a W1 dot, then the kernel)
+are held to their plain versions and to the resident engine at nocc 32,
+and run at nocc 40, past the resident kernel's shared-memory cap.
 """
 
 import pytest
@@ -166,3 +169,77 @@ def test_unstaged_kernel_large_nocc(cuda):
     e_k = tc.tile_energy_fused_chunk(*args)
     e_p = tc.tile_energy_fused_reference_chunk(*args)
     torch.testing.assert_close(e_k, e_p, rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_w1_gemm_matches_plain(cuda, prec):
+    """emit_w_dot's bf16 GEMM (torch.mm(..., out_dtype=torch.float32))
+    against its plain version on the same bf16 parts, every perm, at
+    the bench nocc: the same exact products summed in another order."""
+    mode = tc.w1_mode(prec)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    T, o, nvp = 4, 32, 40
+    t2T = torch.rand((nvp, nvp, o * o), generator=g, device=cuda) - 0.5
+    store = tc.w1_t2(t2T, mode)
+    for p in tc.PERMS:
+        ov = torch.rand((T, T, o, nvp), generator=g, device=cuda) - 0.5
+        a = tc.w1_ov(ov, mode)
+        b = tc.w1_t2_slice(store, 8, T, mode)
+        w = tc.emit_w_dot(p, a, b, torch.float32, T, o, prec)
+        r = tc.emit_w_dot_reference(p, a, b, torch.float32, T, o, prec)
+        assert w.dtype == torch.float32 and w.is_contiguous()
+        torch.testing.assert_close(w, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_fused_bf16_tiers_match_resident(cuda, prec):
+    """At nocc 32 (where engine='auto' takes the bf16 tiers to the
+    resident kernel) the fused engine through the combine kernel equals
+    the resident engine and the plain 'xla' engine at the same tier
+    (fp32: 1e-5), and 'high' stays within the JAX package's 5e-4 of full
+    precision."""
+    t1, t2, eris = _problem(32, 6, 7, cuda, torch.float32, df=True)
+    mode = tc.w1_mode(prec)
+    assert ccsd_t.auto_engine("cuda", 32, torch.float32, mode) == "resident"
+    n0 = tc.launch_count
+    e_f = ccsd_t.kernel(t1, t2, eris, tile=2, engine="fused",
+                        dot_precision=prec)
+    assert tc.launch_count > n0
+    e_r = ccsd_t.kernel(t1, t2, eris, tile=2, engine="resident",
+                        dot_precision=prec)
+    e_x = ccsd_t.kernel(t1, t2, eris, tile=2, engine="xla",
+                        dot_precision=prec)
+    assert abs(e_f - e_r) <= 1e-5 * abs(e_r)
+    assert abs(e_f - e_x) <= 1e-5 * abs(e_x)
+    if prec == "high":
+        e_full = ccsd_t.kernel(t1, t2, eris, tile=2, engine="fused")
+        assert abs(e_f - e_full) <= 5e-4 * abs(e_full)
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_bf16_tiers_past_the_resident_cap(cuda, prec):
+    """At nocc 40 the resident kernel cannot hold a cell and raises;
+    engine='auto' runs the tier on the fused engine, equal to 'xla'."""
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    t1, t2, eris = _problem(40, 4, 8, cuda, torch.float32)
+    mode = tc.w1_mode(prec)
+    assert tr.max_nocc(torch.float32, mode) < 40
+    assert ccsd_t.auto_engine("cuda", 40, torch.float32, mode) == "fused"
+    with pytest.raises(NotImplementedError, match="engine='fused'"):
+        ccsd_t.kernel(t1, t2, eris, tile=2, engine="resident",
+                      dot_precision=prec)
+    n0, r0 = tc.launch_count, tr.launch_count
+    e_a = ccsd_t.kernel(t1, t2, eris, tile=2, dot_precision=prec)
+    assert tc.launch_count > n0 and tr.launch_count == r0
+    e_x = ccsd_t.kernel(t1, t2, eris, tile=2, engine="xla",
+                        dot_precision=prec)
+    assert abs(e_a - e_x) <= 1e-5 * abs(e_x)
+
+
+def test_bf16_tiers_take_float32(cuda):
+    t1, t2, eris = _problem(3, 7, 1, cuda, torch.float64)
+    for engine in ("auto", "fused", "resident"):
+        with pytest.raises(ValueError, match="float32"):
+            ccsd_t.kernel(t1, t2, eris, tile=3, engine=engine,
+                          dot_precision="high")
