@@ -139,7 +139,9 @@ each, started together), then runs:
      of H2O/sto-3g, MOM-GF poles against Davidson IP/EA and its moment
      conservation; (b) the H2O/cc-pVDZ roots in fp32 against fp64; (c)
      benzene/cc-pVDZ (nocc 21, nvir 93) through examples/eom_benzene in
-     fp32: EE (4), IP (3), EA (3) against the reference's pins, with
+     fp32: EE (the lowest 2 of the 4 pinned roots: the host Davidson of
+     all four took 208-219 s, which phase 15 needs), IP (3), EA (3)
+     against the reference's pins, with
      Davidson cycles, sigmas, s per sigma, the host Davidson's share and
      peaks, the host RHF and ERI apart; (d) one EE sigma at the (H2O)8
      shape (s, in sweeps, and peak at the EOM planner's ntile); (e) the
@@ -179,6 +181,18 @@ each, started together), then runs:
      16-tile probe fused full, 'high' (through engine='auto', which
      must take the fused engine there) and 'default', and 2 tiles of
      each tier against engine='xla' (1e-5).
+ 15. the certified (H2O)8/cc-pVTZ campaign (w8_certify_phase; no hand
+     kernel on this path) through examples/w8_parity_certify.run at full
+     width (nocc 32, nvir 424, naux 1112, frozen core, cc-pVTZ-JKFIT): the
+     host DF build, the DF-RHF with J/K in fp64 on the card (one J/K call
+     on the host beside it), fp32 CCSD (conv_tol 1e-6, conv_tol_normt
+     1.5e-4) and Lambda (|dl| < 1e-4) on the device DIIS rings, the
+     amplitude checkpoint, and one fp64 Lagrangian energy on the card;
+     E_SCF within 1e-8 Ha and the certified E_corr within 1e-7 Ha of the
+     JAX package's record (docs/PARITY.md: -608.4722402812,
+     -2.1875497066), each stage's seconds and peak, the raw fp32 gap
+     (not gated); then the certification again from the checkpoint
+     files (--reuse-scf), bit for bit.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, phase 11's fp32 ones
@@ -417,6 +431,9 @@ EOM_FP32_TOL, ATOL_EOM_FP32 = 1e-5, 2e-5
 # benzene/cc-pVDZ in fp32 against benzene_ccpvdz: twice the pass bar of
 # the JAX package's examples/eom_benzene_chip.py (1e-3 eV)
 ATOL_BENZENE_EV = 2e-3
+# the EE sector's lowest roots (of the four pinned): its host Davidson
+# took 207.9-219.3 s at four, the budget phase 15 needs
+BENZENE_EE_ROOTS = 2
 # the streamed ladder at the (H2O)8 shape: row tiles a virtual axis, and
 # streamed against resident in fp32 (the same products in other GEMM
 # blockings; relative norm of t2 and of the Lambda residual)
@@ -434,6 +451,12 @@ RANK_TIMEOUT = 300
 # twelve waters, 12 x 58 = 696 basis functions, 12 O 1s frozen), past the
 # resident kernel's shared-memory cap (fp32 nocc 36)
 NOCC12, NVIR12, NAUX12, NPROBE12 = 48, 636, 1824, 16
+# phase 15: the certified (H2O)8/cc-pVTZ campaign against the JAX
+# package's record (docs/PARITY.md:21, :63): the DF-RHF energy to 1e-8 Ha
+# and the certified E_corr to the BASELINE gate, 1e-7 Ha, at the record's
+# shape (frozen core, cc-pVTZ-JKFIT)
+ATOL_W8_SCF, ATOL_W8_CERTIFIED = 1e-8, 1e-7
+W8_SHAPE = (32, 424, 1112)
 # the same bf16 tier on two engines: the same exact bf16 products summed
 # in fp32 in other orders, as RTOL_TILE_FP32
 RTOL_TIER = 1e-5
@@ -2150,7 +2173,7 @@ def eom_stream_phase(torch, smi, dev, sweep_sec):
     # (c) benzene/cc-pVDZ, fp32, the JAX example's tolerances
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    bz = eom_benzene.run(dev, f32)
+    bz = eom_benzene.run(dev, f32, ee_roots=BENZENE_EE_ROOTS)
     for k in ("ee", "ip", "ea"):
         r = bz[k]
         if not (r["converged"] and r["max_abs_dev_ev"] < ATOL_BENZENE_EV):
@@ -2763,6 +2786,78 @@ def bf16_tier_phase(torch, smi, dev):
     del er, t1, t2
     torch.cuda.empty_cache()
     return launches
+
+
+def w8_certify_phase(torch, smi, dev):
+    """Phase 15: examples/w8_parity_certify.run at full width on the card
+    (SCF with fp64 J/K on the card, fp32 CCSD and Lambda, the checkpoint,
+    the fp64 certification), held to the JAX package's record; then the
+    certification again from the checkpoint files (--reuse-scf), bit for
+    bit.  The checkpoint goes to a directory of its own under .campaign/,
+    removed at the end."""
+    import shutil
+    import tempfile
+    from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
+    os.makedirs(os.path.join(ROOT, ".campaign"), exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_w8_",
+                               dir=os.path.join(ROOT, ".campaign"))
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = w8.run(dev, scratch=scratch)
+        sec = time.perf_counter() - t0
+        shape = (r["nocc"], r["nvir"], r["naux"])
+        checks = {
+            "shape": shape == W8_SHAPE,
+            "scf": abs(r["d_scf_vs_record"]) < ATOL_W8_SCF,
+            "ccsd_converged": r["ccsd_converged"],
+            "lambda_converged": r["lambda_converged"],
+            "certified": abs(r["d_certified_vs_record"]) < ATOL_W8_CERTIFIED}
+        if not all(checks.values()):
+            raise RuntimeError(f"(H2O)8 certified campaign: {checks} {r}")
+        say(15, "(H2O)8/cc-pVTZ scf ok", card=json.dumps(smi),
+            nao=r["nao"], naux=r["naux"], e_scf=repr(r["e_scf"]),
+            d_scf_vs_record=f"{r['d_scf_vs_record']:.2e}", atol=ATOL_W8_SCF,
+            jk=json.dumps(r["jk"]), df_s=f"{r['df_s']:.1f}",
+            scf_s=f"{r['scf_s']:.1f}", scf_cycles=r["scf_cycles"],
+            jk_s=f"{r['jk_s']:.4f}", jk_host_s=f"{r['jk_host_s']:.3f}",
+            jk_gap=f"{r['jk_gap']:.2e}", peak_gib=r["peak_scf_gib"])
+        say(15, "(H2O)8/cc-pVTZ fp32 ccsd and lambda ok",
+            card=json.dumps(smi), shape=json.dumps(shape),
+            eris_s=f"{r['eris_s']:.2f}", ccsd=json.dumps(r["ccsd_diis"]),
+            ccsd_cycles=r["ccsd_cycles"], ccsd_s=f"{r['ccsd_s']:.1f}",
+            s_per_cycle=f"{r['ccsd_s_per_cycle']:.3f}",
+            final_dt=f"{r['ccsd_normt']:.3e}", e32=repr(r["e32"]),
+            peak_ccsd_gib=r["peak_ccsd_gib"],
+            lam=json.dumps(r["lambda_diis"]),
+            lambda_cycles=r["lambda_cycles"], lambda_s=f"{r['lambda_s']:.1f}",
+            lambda_s_per_cycle=f"{r['lambda_s_per_cycle']:.3f}",
+            final_dl=f"{r['lambda_dl']:.3e}",
+            peak_lambda_gib=r["peak_lambda_gib"])
+        say(15, "(H2O)8/cc-pVTZ certified ok", card=json.dumps(smi),
+            e_lagr=repr(r["e_lagr"]),
+            d_certified_vs_record=f"{r['d_certified_vs_record']:.2e}",
+            atol=ATOL_W8_CERTIFIED, raw_fp32_gap=f"{r['raw_gap']:.3e}",
+            d_e32_vs_tpu_record=f"{r['d_e32_vs_tpu_record']:.3e}",
+            eris64_s=f"{r['eris64_s']:.2f}",
+            residual64_s=f"{r['residual64_s']:.2f}", ntile64=r["ntile64"],
+            peak_certify_gib=r["peak_certify_gib"],
+            checkpoint_write_s=f"{r['checkpoint_s']:.1f}",
+            seconds=f"{sec:.1f}")
+        # the certification again from the checkpoint (--reuse-scf)
+        t0 = time.perf_counter()
+        r2 = w8.run(dev, reuse_scf=True, scratch=scratch)
+        if not (r2["scf_reused"] and r2["amps_reused"]
+                and r2["e_lagr"] == r["e_lagr"]):
+            raise RuntimeError(f"--reuse-scf: {r2} against {r['e_lagr']}")
+        say(15, "reuse from the checkpoint ok", e_lagr=repr(r2["e_lagr"]),
+            bit_equal=True, ntile64=r2["ntile64"],
+            eris64_s=f"{r2['eris64_s']:.2f}",
+            residual64_s=f"{r2['residual64_s']:.2f}",
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -3737,6 +3832,11 @@ def main():
     c4_launches += tier_launches["chunk"]
     say(14, "done", launches_in_record=json.dumps(tier_launches),
         seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- phase 15: the certified (H2O)8/cc-pVTZ campaign ----------------
+    t0 = time.perf_counter()
+    w8_certify_phase(torch, smi, dev)
+    say(15, "done", seconds=f"{time.perf_counter() - t0:.1f}")
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

@@ -121,9 +121,11 @@ def sector(name, kern, nroots, t1, t2, er, dev):
                   if dev.type == "cuda" else None))
 
 
-def run(device=None, dtype=None):
+def run(device=None, dtype=None, ee_roots=4):
     """RHF -> incore integrals -> RCCSD -> EE/IP/EA on ``device``
-    (default the card); returns the readings."""
+    (default the card); returns the readings.  ee_roots: the lowest EE
+    roots to solve, each held to its pin (the host Davidson's cost grows
+    with their number)."""
     dev, dtype = _dev.resolve(device, dtype)
     out = dict(molecule="benzene/cc-pvdz (pin geometry)", dtype=str(dtype))
     t0 = time.perf_counter()
@@ -160,6 +162,7 @@ def run(device=None, dtype=None):
     _log(f"E_corr(CCSD) = {e_corr:.10f} ({out['ccsd_s']:.1f} s)")
 
     for name, kern, nroots in SECTORS:
+        nroots = ee_roots if name == "ee" else nroots
         out[name] = r = sector(name, kern, nroots, t1, t2, er, dev)
         _log(f"{name.upper()} roots (eV): "
              + ", ".join(f"{x:.5f}" for x in r["roots_ev"])

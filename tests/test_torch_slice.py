@@ -48,7 +48,13 @@ LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
                 "mp.mp2f12", "mp.gmp2", "mp.dfgmp2", "utils.profiling",
                 "lib.linalg", "cc.eom", "cc.momgfccsd", "lib.hoststore",
                 "cc.stream_ladder", "parallel.mesh", "parallel.distributed",
-                "parallel.ladder_shard", "parallel.ccsd_shard")
+                "parallel.ladder_shard", "parallel.ccsd_shard",
+                "examples.w8_parity_certify")
+# the JAX package's example scripts (the repo's examples/): the port's
+# twins carry their own copies of what they take from them
+ROOT_EXAMPLES = {"examples"} | {
+    f[:-3] for f in os.listdir(os.path.join(ROOT, "examples"))
+    if f.endswith(".py")}
 
 
 def test_df_slice_matches_jax_driver(monkeypatch):
@@ -102,6 +108,8 @@ def test_port_imports_no_jax_statically():
                 bad.append((path, name))
             elif top == "pyscf_mpcc_tpu" and not any(
                     name == a or name.startswith(a + ".") for a in ALLOWED):
+                bad.append((path, name))
+            elif top in ROOT_EXAMPLES:
                 bad.append((path, name))
     assert not bad, bad
 
@@ -243,3 +251,25 @@ def test_eom_stream_entry_points_default_to_cuda(name):
         pytest.skip("the card is present; chip_smoke.py phase 12 runs these")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _eom_stream_entry_points()[name]()
+
+
+def _campaign_entry_points():
+    from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
+    scf = {"nelectron": 2}
+    return {
+        "w8_run": lambda: w8.run(),
+        "w8_main": lambda: w8.main([]),
+        "w8_stage_fp32": lambda: w8.stage_fp32(scf, 0),
+        "w8_certify": lambda: w8.certify(scf, {}, 0),
+    }
+
+
+@pytest.mark.parametrize("name", list(_campaign_entry_points()))
+def test_campaign_entry_points_default_to_cuda(name):
+    """The certified (H2O)8 campaign's entry points resolve a missing
+    device to the card (lib/device.resolve) and raise where there is
+    none, before any SCF or checkpoint work."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is present; chip_smoke.py phase 15 runs these")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _campaign_entry_points()[name]()
