@@ -73,14 +73,16 @@ each, started together), then runs:
      exact-Cholesky factors; the same solves in fp32 within 1e-6 Ha, with
      the frozen blocks bit for bit the bath's; (b) (H2O)4/cc-pVDZ (host
      RHF): the fragmented workflow, one fragment per water chained, in
-     fp64 (each fragment's share of the MP2 -> CCSD gap) and fp32, the
+     fp64 (the first water's and all four's share of the MP2 -> CCSD
+     gap) and fp32, the
      one-fragment no-freeze control against CCSD(mf), DF-MP2 energies and
      unrelaxed and relaxed densities (with and without a frozen core)
      against the same calls on the CPU, and the MPCC(mf) facade in fp32
      and fp64; (c) the (H2O)8 shape in fp32 on phase 1's synthetic
-     integrals: masked MP-CC cycles on the device ring and one on the
-     host ring (damped by a level shift), low-level cycles, DF-MP2 and
-     iterative MP2 cycles on each ring, with times and peak memory;
+     integrals: masked MP-CC cycles on the device ring (damped by a
+     level shift; the host ring's left out for phase 16's budget),
+     low-level cycles, DF-MP2 and iterative MP2 cycles on each ring,
+     with times and peak memory;
   9. the open-shell path (no hand kernel on it either; open_shell_phase):
      (a) O2 triplet/sto-3g through UHF and ROHF and H2O/sto-3g through
      UHF in fp64 on the card: E(SCF), E(UCCSD) and E(T) against pins
@@ -105,11 +107,13 @@ each, started together), then runs:
      and ccsdt_env.kernel (ccsdt-1, ccsdt-3); the same solves in fp32
      within 1e-6 Ha with fp32 results and the frozen blocks bit for bit
      the bath's; (b) OH(H2O)3/cc-pVDZ in fp32: kernel_pert_df at 10+10
-     active on phase 9(b)'s DF-UHF and the fragmented chain with its
-     no-freeze control on an exact UHF, against the JAX package's TPU
-     records (1e-5 Ha; the T3 coupling 2e-6, the control against UCCSD
-     2e-6), the host parts timed apart; (c) the OH(H2O)3/cc-pVTZ shape in
-     fp32: masked UMPCC cycles on each ring, an OO-MP2 sweep per
+     active on phase 9(b)'s DF-UHF and the fragmented chain (the OH
+     fragment, then the three waters; its no-freeze control is left out
+     for phase 16's budget) on an exact UHF, with the global UMP2 and
+     UCCSD, against the JAX package's TPU records (1e-5 Ha; the T3
+     coupling 2e-6), the host parts timed apart; (c)
+     the OH(H2O)3/cc-pVTZ shape in fp32: masked UMPCC cycles on each
+     ring, an OO-MP2 sweep per
      variant, a kernel_pert_df cycle at 10+10 active split into its parts
      with seinsum's host share, and one environment T3 sweep at 2+2
      active on ENV_SHAPE, each with its peak memory.
@@ -192,12 +196,28 @@ each, started together), then runs:
      JAX package's record (docs/PARITY.md: -608.4722402812,
      -2.1875497066), each stage's seconds and peak, the raw fp32 gap
      (not gated); then the certification again from the checkpoint
-     files (--reuse-scf), bit for bit.
+     files (--reuse-scf), bit for bit.  The checkpoint stays for phase
+     16 and is removed after it.
+ 16. the full (H2O)8/cc-pVTZ (T) and the CCSD(T) pipeline
+     (w8_triples_phase): (a) examples/w8_triples.run from phase 15's
+     checkpoint, all 26,235 tiles twice, through engine='auto' at full
+     precision (the combine kernel) and at dot-high (the resident kernel
+     in mode split): launches and tiles counted, dot-high within 1e-6 of
+     full precision, each within 1e-5 of the JAX package's TPU record
+     (docs/PARITY.md: -0.0713274378, -0.0713276280), seconds, ms a tile
+     beside the 64-tile probes', peak beside the planner's model; (b)
+     every 41st tile (640) through the fused engine's prep and the
+     combine kernel in fp32 against engine='xla' in fp64 on fp64
+     integrals, the sum within 1e-6 and each tile within 1e-5; (c)
+     examples/w8_ccsd_pipeline --small through the facade (gto -> DF-RHF
+     -> CCSD(mf, frozen=2) -> .ccsd_t()) in fp32 against fp64, E_corr +
+     E(T) within 1e-6 Ha.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, phase 11's fp32 ones
-outside its comparisons with engine='xla', phase 13(a)'s mesh probes
-and phase 14's timed fused probes, its error against the
+outside its comparisons with engine='xla', phase 13(a)'s mesh probes,
+phase 14's timed fused probes, and phase 16's full runs and fp32
+pipeline, its error against the
 plain version, its time, the plain version's time and the least time the
 card could take, from the peak rates below), the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -208,9 +228,11 @@ exits non-zero and prints no result.
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -376,14 +398,16 @@ UMPCC_PINS = {
 # (docs/PARITY.md:397-399, examples/umpcc_t3_chip.py), and the fragmented
 # chain (docs/PARITY.md:431-437, examples/mpcc_fragmented_chip.py).  Each
 # port energy within ATOL_REC of its record, the coupling within
-# ATOL_COUPLING, the no-freeze control within ATOL_CONTROL of the port's
-# own UCCSD on the same integrals (the record's gap: 9.5e-7)
+# ATOL_COUPLING.  Of the fragmented runs the chain runs (it starts from
+# the OH fragment, the radical's solve): its no-freeze control took 34-48
+# s of the script's budget, which phase 16 needs; phase 10(a) holds the
+# nothing-frozen limit on the pins' molecules
 REC_OH3 = {"uccsd": -0.8142849207, "uccsd_t3": -0.8143755198,
            "coupling": -0.8143755198 + 0.8142849207,
            "frag_mp2": -0.7737513781, "frag_radical": -0.7857607007,
            "frag_chain": -0.8114969134, "frag_control": -0.8138623238,
            "frag_uccsd": -0.8138632774}
-ATOL_REC, ATOL_COUPLING, ATOL_CONTROL = 1e-5, 2e-6, 2e-6
+ATOL_REC, ATOL_COUPLING = 1e-5, 2e-6
 OH3_N_ACT = 10
 # the environment T3 sweep of phase 10(c): OS_SHAPE with the virtual
 # ranges cut to 24/25 (its t3 is o^3 v^3 a block, 6.2e10 elements in
@@ -432,7 +456,8 @@ EOM_FP32_TOL, ATOL_EOM_FP32 = 1e-5, 2e-5
 # the JAX package's examples/eom_benzene_chip.py (1e-3 eV)
 ATOL_BENZENE_EV = 2e-3
 # the EE sector's lowest roots (of the four pinned): its host Davidson
-# took 207.9-219.3 s at four, the budget phase 15 needs
+# took 207.9-219.3 s at four, the budget phase 15 needs (at one root the
+# Davidson lands on the second state, 6.868 eV)
 BENZENE_EE_ROOTS = 2
 # the streamed ladder at the (H2O)8 shape: row tiles a virtual axis, and
 # streamed against resident in fp32 (the same products in other GEMM
@@ -460,6 +485,19 @@ W8_SHAPE = (32, 424, 1112)
 # the same bf16 tier on two engines: the same exact bf16 products summed
 # in fp32 in other orders, as RTOL_TILE_FP32
 RTOL_TIER = 1e-5
+# phase 16: the full (T) from phase 15's checkpoint, every tile of edge
+# 8 (nvir 424: 53 tile rows), against the JAX package's TPU records
+# (docs/PARITY.md:113 'highest', :23 dot-high).  Those ran on the TPU's own
+# fp32 fixed point (e32 -2.1875844002), 3.77e-5 from the card's, and E(T)
+# moves to first order with the amplitudes (about 2 E(T) |dt|/|t|, 1e-6
+# to 3e-6), hence 1e-5; the tight checks are the card's own: dot-high
+# against full precision within 1e-6 (the TPU's 1.8e-7,
+# docs/PARITY.md:113-114), and every 41st tile (640) in fp32 against
+# fp64 (the sum within 1e-6, each tile within RTOL_TILE_FP32)
+W8_TILE, W8_NTILES = 8, 26235
+W8_ET_TPU = {"highest": -0.0713274378, "dot-high": -0.0713276280}
+ATOL_W8_ET_RECORD, ATOL_W8_ET_TIER = 1e-5, 1e-6
+W8_SAMPLE_STRIDE, RTOL_W8_SAMPLE = 41, 1e-6
 
 
 def say(phase, msg, **kw):
@@ -650,8 +688,10 @@ def mpcc_phase(torch, smi, cc, beris, bt1, bt2, sweep_sec, ntile):
     nw = mol.natm // 3           # one fragment (and one O 1s core) a water
     waters = [[3 * i, 3 * i + 1, 3 * i + 2] for i in range(nw)]
     chain = dict(idx_s=[], idx_d=list(range(15)), eri_ao=eri)
+    # the chain of the first water and of all four (the two between took
+    # 26 s of the script's budget, which phase 16 needs)
     e_chain = []
-    for k in range(1, nw + 1):
+    for k in (1, nw):
         e, _, _, _, sp = workflow.fragmented_mpcc(
             mol, mf, waters[:k], device=dev, dtype=f64, **chain)
         e_chain.append(e)
@@ -689,11 +729,11 @@ def mpcc_phase(torch, smi, cc, beris, bt1, bt2, sweep_sec, ntile):
             m, s_e = seconds(torch, lambda: DFRMP2(mfd, frozen=nfro, device=d,
                                             dtype=f64).run())
             dm_u = m.make_rdm1()
-            # twice: the first call on the card also loads the solver
-            # and autograd libraries
+            # twice on the card: the first call also loads the solver
+            # and autograd libraries (once on the CPU, which has none)
             s_r = [seconds(torch, lambda: m.make_rdm1(relaxed=True))
-                   for _ in range(2)]
-            out.append((m.e_corr, dm_u.cpu(), s_r[1][0].cpu(), s_e,
+                   for _ in range(2 if d == dev else 1)]
+            out.append((m.e_corr, dm_u.cpu(), s_r[-1][0].cpu(), s_e,
                         [t for _, t in s_r]))
         de = abs(out[0][0] - out[1][0])
         ddm = max(float((out[0][i] - out[1][i]).abs().max()) for i in (1, 2))
@@ -706,7 +746,7 @@ def mpcc_phase(torch, smi, cc, beris, bt1, bt2, sweep_sec, ntile):
             relaxed_trace_err=f"{d_tr:.2e}", sec_energy=f"{out[0][3]:.3f}",
             sec_relaxed_first=f"{out[0][4][0]:.3f}",
             sec_relaxed=f"{out[0][4][1]:.3f}",
-            sec_relaxed_cpu=f"{out[1][4][1]:.3f}")
+            sec_relaxed_cpu=f"{out[1][4][0]:.3f}")
     facade = {}
     for dt in (f32, f64):
         m = MPCC(mfd, device=dev, dtype=dt)
@@ -738,34 +778,32 @@ def mpcc_phase(torch, smi, cc, beris, bt1, bt2, sweep_sec, ntile):
     m1, m2 = frozen(space, no, nv)
     t_masks = time.perf_counter() - t0
     base = torch.cuda.memory_allocated()
-    rows = {}
     # a cycle's time is the difference of two calls, which share the
-    # per-call set-up (the host mask build, init_amps, the ring)
-    for ring, ncyc in (("device", (1, 3)), ("host", (1, 2))):
-        secs = []
-        for n in ncyc:
-            torch.cuda.reset_peak_memory_stats()
-            (_, e, c1, c2), sec_k = seconds(torch, lambda: rmpccsd.kernel(
-                beris, **space, t1=bt1, t2=bt2, max_cycle=n, conv_tol=0.0,
-                ntile=ntile, level_shift=shift, diis_backend=ring))
-            peak = torch.cuda.max_memory_allocated()
-            exact = not bool(((c2 != bt2) & m2).any()
-                             or ((c1 != bt1) & m1).any())
-            if not (torch.isfinite(c1).all() and torch.isfinite(c2).all()
-                    and abs(e) < float("inf") and exact):
-                raise RuntimeError(f"masked cycles ({ring}, {n}): E {e}, "
-                                   f"frozen blocks exact {exact}")
-            del c1, c2
-            secs.append(sec_k)
-        per = (secs[1] - secs[0]) / (ncyc[1] - ncyc[0])
-        rows[ring] = {f"sec_call_{n}": f"{t:.3f}" for n, t in zip(ncyc, secs)}
-        rows[ring].update(sec_per_cycle=f"{per:.3f}",
-                          sec_setup=f"{secs[0] - per:.3f}",
-                          peak_gib=f"{peak / 2**30:.2f}")
+    # per-call set-up (the host mask build, init_amps, the ring).  The
+    # device ring only: the host ring's calls cost 19 s of the script's
+    # budget, and 8(a) runs the masked solver on both rings
+    ncyc, secs = (1, 3), []
+    for n in ncyc:
+        torch.cuda.reset_peak_memory_stats()
+        (_, e, c1, c2), sec_k = seconds(torch, lambda: rmpccsd.kernel(
+            beris, **space, t1=bt1, t2=bt2, max_cycle=n, conv_tol=0.0,
+            ntile=ntile, level_shift=shift, diis_backend="device"))
+        peak = torch.cuda.max_memory_allocated()
+        exact = not bool(((c2 != bt2) & m2).any()
+                         or ((c1 != bt1) & m1).any())
+        if not (torch.isfinite(c1).all() and torch.isfinite(c2).all()
+                and abs(e) < float("inf") and exact):
+            raise RuntimeError(f"masked cycles (device, {n}): E {e}, "
+                               f"frozen blocks exact {exact}")
+        del c1, c2
+        secs.append(sec_k)
+    per = (secs[1] - secs[0]) / (ncyc[1] - ncyc[0])
+    row = {f"sec_call_{n}": f"{t:.3f}" for n, t in zip(ncyc, secs)}
+    row.update(sec_per_cycle=f"{per:.3f}", sec_setup=f"{secs[0] - per:.3f}",
+               peak_gib=f"{peak / 2**30:.2f}")
     say(8, "(H2O)8 masked mpccsd fp32", shape=f"{no},{nv}",
         active=f"{ACT_HOLES}x{ACT_PARTICLES}", level_shift=shift,
-        device_ring=json.dumps(rows["device"]),
-        host_ring=json.dumps(rows["host"]), sec_masks_host=f"{t_masks:.3f}",
+        device_ring=json.dumps(row), sec_masks_host=f"{t_masks:.3f}",
         sweep_sec_phase4=f"{sweep_sec:.4f}", base_gib=f"{base / 2**30:.2f}",
         frozen_blocks_bit_exact=True, card=json.dumps(smi),
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
@@ -1279,25 +1317,23 @@ def umpcc_phase(torch, smi, dev, mf_df):
     try:
         for mod, name, k in wrapped:
             setattr(mod, name, timed(k))
-        ec, sec_c = umpcc_oh.chain(mf, ("chain", "control"), eri,
+        ec, sec_c = umpcc_oh.chain(mf, ("chain",), eri,
                                    device=dev, dtype=f32)
     finally:
         for mod, name, k in wrapped:
             setattr(mod, name, orig[k])
     d_c = {k: ec[k] - REC_OH3["frag_" + k]
-           for k in ("mp2", "chain", "control", "uccsd")}
-    d_ctl = ec["control"] - ec["uccsd"]
-    if not (all(abs(x) < ATOL_REC for x in d_c.values())
-            and abs(d_ctl) < ATOL_CONTROL):
+           for k in ("mp2", "chain", "uccsd")}
+    if not all(abs(x) < ATOL_REC for x in d_c.values()):
         raise RuntimeError(f"OH(H2O)3 fragmented chain against the record: "
-                           f"{d_c}, control - UCCSD {d_ctl} ({ec})")
+                           f"{d_c} ({ec})")
     gap = ec["uccsd"] - ec["mp2"]
     say(10, "OH(H2O)3/cc-pVDZ fragmented chain fp32 ok",
         e_uhf=repr(mf.e_tot),
         e=json.dumps({k: repr(x) for k, x in ec.items()}),
         fraction_chain=f"{(ec['chain'] - ec['mp2']) / gap:.4f}",
         d_record=json.dumps({k: f"{x:.2e}" for k, x in d_c.items()}),
-        control_minus_uccsd=f"{d_ctl:.2e}", sec_uhf_host=f"{s_uhf:.1f}",
+        sec_uhf_host=f"{s_uhf:.1f}",
         sec=json.dumps({k: round(x, 2) for k, x in sec_c.items()}),
         timed_sec=json.dumps({k: round(x, 2) for k, x in host.items()}),
         timed_calls=json.dumps(calls),
@@ -2788,76 +2824,210 @@ def bf16_tier_phase(torch, smi, dev):
     return launches
 
 
-def w8_certify_phase(torch, smi, dev):
+def w8_certify_phase(torch, smi, dev, scratch):
     """Phase 15: examples/w8_parity_certify.run at full width on the card
     (SCF with fp64 J/K on the card, fp32 CCSD and Lambda, the checkpoint,
     the fp64 certification), held to the JAX package's record; then the
     certification again from the checkpoint files (--reuse-scf), bit for
-    bit.  The checkpoint goes to a directory of its own under .campaign/,
-    removed at the end."""
-    import shutil
-    import tempfile
+    bit.  The checkpoint goes to ``scratch``, which phase 16 reads."""
     from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
-    os.makedirs(os.path.join(ROOT, ".campaign"), exist_ok=True)
-    scratch = tempfile.mkdtemp(prefix="chip_smoke_w8_",
-                               dir=os.path.join(ROOT, ".campaign"))
-    try:
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        r = w8.run(dev, scratch=scratch)
-        sec = time.perf_counter() - t0
-        shape = (r["nocc"], r["nvir"], r["naux"])
-        checks = {
-            "shape": shape == W8_SHAPE,
-            "scf": abs(r["d_scf_vs_record"]) < ATOL_W8_SCF,
-            "ccsd_converged": r["ccsd_converged"],
-            "lambda_converged": r["lambda_converged"],
-            "certified": abs(r["d_certified_vs_record"]) < ATOL_W8_CERTIFIED}
-        if not all(checks.values()):
-            raise RuntimeError(f"(H2O)8 certified campaign: {checks} {r}")
-        say(15, "(H2O)8/cc-pVTZ scf ok", card=json.dumps(smi),
-            nao=r["nao"], naux=r["naux"], e_scf=repr(r["e_scf"]),
-            d_scf_vs_record=f"{r['d_scf_vs_record']:.2e}", atol=ATOL_W8_SCF,
-            jk=json.dumps(r["jk"]), df_s=f"{r['df_s']:.1f}",
-            scf_s=f"{r['scf_s']:.1f}", scf_cycles=r["scf_cycles"],
-            jk_s=f"{r['jk_s']:.4f}", jk_host_s=f"{r['jk_host_s']:.3f}",
-            jk_gap=f"{r['jk_gap']:.2e}", peak_gib=r["peak_scf_gib"])
-        say(15, "(H2O)8/cc-pVTZ fp32 ccsd and lambda ok",
-            card=json.dumps(smi), shape=json.dumps(shape),
-            eris_s=f"{r['eris_s']:.2f}", ccsd=json.dumps(r["ccsd_diis"]),
-            ccsd_cycles=r["ccsd_cycles"], ccsd_s=f"{r['ccsd_s']:.1f}",
-            s_per_cycle=f"{r['ccsd_s_per_cycle']:.3f}",
-            final_dt=f"{r['ccsd_normt']:.3e}", e32=repr(r["e32"]),
-            peak_ccsd_gib=r["peak_ccsd_gib"],
-            lam=json.dumps(r["lambda_diis"]),
-            lambda_cycles=r["lambda_cycles"], lambda_s=f"{r['lambda_s']:.1f}",
-            lambda_s_per_cycle=f"{r['lambda_s_per_cycle']:.3f}",
-            final_dl=f"{r['lambda_dl']:.3e}",
-            peak_lambda_gib=r["peak_lambda_gib"])
-        say(15, "(H2O)8/cc-pVTZ certified ok", card=json.dumps(smi),
-            e_lagr=repr(r["e_lagr"]),
-            d_certified_vs_record=f"{r['d_certified_vs_record']:.2e}",
-            atol=ATOL_W8_CERTIFIED, raw_fp32_gap=f"{r['raw_gap']:.3e}",
-            d_e32_vs_tpu_record=f"{r['d_e32_vs_tpu_record']:.3e}",
-            eris64_s=f"{r['eris64_s']:.2f}",
-            residual64_s=f"{r['residual64_s']:.2f}", ntile64=r["ntile64"],
-            peak_certify_gib=r["peak_certify_gib"],
-            checkpoint_write_s=f"{r['checkpoint_s']:.1f}",
-            seconds=f"{sec:.1f}")
-        # the certification again from the checkpoint (--reuse-scf)
-        t0 = time.perf_counter()
-        r2 = w8.run(dev, reuse_scf=True, scratch=scratch)
-        if not (r2["scf_reused"] and r2["amps_reused"]
-                and r2["e_lagr"] == r["e_lagr"]):
-            raise RuntimeError(f"--reuse-scf: {r2} against {r['e_lagr']}")
-        say(15, "reuse from the checkpoint ok", e_lagr=repr(r2["e_lagr"]),
-            bit_equal=True, ntile64=r2["ntile64"],
-            eris64_s=f"{r2['eris64_s']:.2f}",
-            residual64_s=f"{r2['residual64_s']:.2f}",
-            seconds=f"{time.perf_counter() - t0:.1f}")
-    finally:
-        shutil.rmtree(scratch, ignore_errors=True)
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = w8.run(dev, scratch=scratch)
+    sec = time.perf_counter() - t0
+    shape = (r["nocc"], r["nvir"], r["naux"])
+    checks = {
+        "shape": shape == W8_SHAPE,
+        "scf": abs(r["d_scf_vs_record"]) < ATOL_W8_SCF,
+        "ccsd_converged": r["ccsd_converged"],
+        "lambda_converged": r["lambda_converged"],
+        "certified": abs(r["d_certified_vs_record"]) < ATOL_W8_CERTIFIED}
+    if not all(checks.values()):
+        raise RuntimeError(f"(H2O)8 certified campaign: {checks} {r}")
+    say(15, "(H2O)8/cc-pVTZ scf ok", card=json.dumps(smi),
+        nao=r["nao"], naux=r["naux"], e_scf=repr(r["e_scf"]),
+        d_scf_vs_record=f"{r['d_scf_vs_record']:.2e}", atol=ATOL_W8_SCF,
+        jk=json.dumps(r["jk"]), df_s=f"{r['df_s']:.1f}",
+        scf_s=f"{r['scf_s']:.1f}", scf_cycles=r["scf_cycles"],
+        jk_s=f"{r['jk_s']:.4f}", jk_host_s=f"{r['jk_host_s']:.3f}",
+        jk_gap=f"{r['jk_gap']:.2e}", peak_gib=r["peak_scf_gib"])
+    say(15, "(H2O)8/cc-pVTZ fp32 ccsd and lambda ok",
+        card=json.dumps(smi), shape=json.dumps(shape),
+        eris_s=f"{r['eris_s']:.2f}", ccsd=json.dumps(r["ccsd_diis"]),
+        ccsd_cycles=r["ccsd_cycles"], ccsd_s=f"{r['ccsd_s']:.1f}",
+        s_per_cycle=f"{r['ccsd_s_per_cycle']:.3f}",
+        final_dt=f"{r['ccsd_normt']:.3e}", e32=repr(r["e32"]),
+        peak_ccsd_gib=r["peak_ccsd_gib"],
+        lam=json.dumps(r["lambda_diis"]),
+        lambda_cycles=r["lambda_cycles"], lambda_s=f"{r['lambda_s']:.1f}",
+        lambda_s_per_cycle=f"{r['lambda_s_per_cycle']:.3f}",
+        final_dl=f"{r['lambda_dl']:.3e}",
+        peak_lambda_gib=r["peak_lambda_gib"])
+    say(15, "(H2O)8/cc-pVTZ certified ok", card=json.dumps(smi),
+        e_lagr=repr(r["e_lagr"]),
+        d_certified_vs_record=f"{r['d_certified_vs_record']:.2e}",
+        atol=ATOL_W8_CERTIFIED, raw_fp32_gap=f"{r['raw_gap']:.3e}",
+        d_e32_vs_tpu_record=f"{r['d_e32_vs_tpu_record']:.3e}",
+        eris64_s=f"{r['eris64_s']:.2f}",
+        residual64_s=f"{r['residual64_s']:.2f}", ntile64=r["ntile64"],
+        peak_certify_gib=r["peak_certify_gib"],
+        checkpoint_write_s=f"{r['checkpoint_s']:.1f}",
+        seconds=f"{sec:.1f}")
+    # the certification again from the checkpoint (--reuse-scf)
+    t0 = time.perf_counter()
+    r2 = w8.run(dev, reuse_scf=True, scratch=scratch)
+    if not (r2["scf_reused"] and r2["amps_reused"]
+            and r2["e_lagr"] == r["e_lagr"]):
+        raise RuntimeError(f"--reuse-scf: {r2} against {r['e_lagr']}")
+    say(15, "reuse from the checkpoint ok", e_lagr=repr(r2["e_lagr"]),
+        bit_equal=True, ntile64=r2["ntile64"],
+        eris64_s=f"{r2['eris64_s']:.2f}",
+        residual64_s=f"{r2['residual64_s']:.2f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def w8_triples_phase(torch, smi, dev, scratch, probe_ms):
+    """Phase 16: the full (T) at (H2O)8/cc-pVTZ from phase 15's
+    checkpoint in ``scratch`` (examples/w8_triples.run, every tile) at
+    full precision and at dot-high through engine='auto', which must take
+    the combine kernel and the resident kernel in mode split; every 41st
+    tile through the fused engine's calls in fp32 against engine='xla' in
+    fp64 on fp64 integrals of the same checkpoint; the CCSD(T) pipeline
+    through the facade (examples/w8_ccsd_pipeline) at --small in fp32
+    against fp64.  probe_ms: the 64-tile probes' ms a tile (phases 4 and
+    5), printed beside the full runs'.  Returns the launches: those of
+    the full runs and of the fp32 pipeline join rows 1 and 3 of the
+    record; the sample's and the fp64 pipeline's are apart."""
+    from pyscf_mpcc_tpu_torch.cc import ccsd_t
+    from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
+    from pyscf_mpcc_tpu_torch.examples import w8_ccsd_pipeline as pipe
+    from pyscf_mpcc_tpu_torch.examples import w8_triples as w8t
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+    f32, f64 = torch.float32, torch.float64
+
+    # (a) the full (T), all tiles, through both kernels
+    tc.launch_count = tr.launch_count = 0
+    t0 = time.perf_counter()
+    full, high = w8t.run("auto:highest,auto:dot-high", W8_TILE, dev,
+                         scratch=scratch)
+    sec = time.perf_counter() - t0
+    launches = {"fused": tc.launch_count, "resident": tr.launch_count}
+    if "error" in full or "error" in high:
+        raise RuntimeError(f"full (T) run failed: {full} {high}")
+    gap = high["e_t"] - full["e_t"]
+    checks = {
+        "n_tiles": full["n_tiles"] == high["n_tiles"] == W8_NTILES,
+        "engines": (full["engine_resolved"], high["engine_resolved"],
+                    high["w1_mode"]) == ("fused", "resident", "split"),
+        "launches": launches == {"fused": W8_NTILES,
+                                 "resident": W8_NTILES},
+        "high_vs_full": abs(gap) <= ATOL_W8_ET_TIER,
+        "full_vs_record": (abs(full["e_t"] - W8_ET_TPU["highest"])
+                           <= ATOL_W8_ET_RECORD),
+        "high_vs_record": (abs(high["e_t"] - W8_ET_TPU["dot-high"])
+                           <= ATOL_W8_ET_RECORD)}
+    if not all(checks.values()):
+        raise RuntimeError(f"full (T): {checks} {launches} {full} {high}")
+    for r, kind, rec in ((full, "fused", "highest"),
+                         (high, "resident", "dot-high")):
+        say(16, f"(H2O)8/cc-pVTZ full (T) {r['precision']} ok",
+            card=json.dumps(smi), engine=r["engine_resolved"],
+            w1_mode=r["w1_mode"], tiles=r["n_tiles"],
+            launches=launches[kind], e_t=repr(r["e_t"]),
+            d_tpu_record=f"{r['e_t'] - W8_ET_TPU[rec]:.3e}",
+            atol_record=ATOL_W8_ET_RECORD, wall_s=f"{r['wall_T_sec']:.1f}",
+            ms_per_tile=f"{r['ms_per_tile']:.4f}",
+            probe_ms_per_tile=f"{probe_ms[kind]:.3f}",
+            eris_s=f"{r['eris_s']:.2f}", peak_gib=r["peak_gib"],
+            plan_gib=r["plan_gib"],
+            clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+    say(16, "dot-high against full precision ok", gap=f"{gap:.3e}",
+        atol=ATOL_W8_ET_TIER, seconds=f"{sec:.1f}")
+
+    # (b) a uniform sample of the tile list: fp32 through the fused
+    # engine's calls (its prep, the combine kernel at K = 1) against the
+    # 'xla' engine in fp64 on fp64 integrals and the upcast amplitudes
+    t0 = time.perf_counter()
+    ck = w8t.load(scratch)
+    sample = ccsd_t._tile_triples(-(-ck["nvir"] // W8_TILE))[
+        ::W8_SAMPLE_STRIDE]
+
+    def big_of(dtype, engine):
+        er = eris_mod.make_eris_df(
+            ck["B"], ck["mo_full"][:, ck["frozen"]:], ck["fock_ao"],
+            ck["nocc"], dtype=dtype, keep_ovvv=False, device=dev)
+        t1, t2 = (torch.as_tensor(ck[k]).to(dev, dtype)
+                  for k in ("t1", "t2"))
+        return ccsd_t._prepare(t1, t2, er, W8_TILE, dtype, None, None, 1.0,
+                               engine)
+
+    big = big_of(f32, "fused")
+    prep, eijk = ccsd_t.make_prep_fused(big), ccsd_t.fused_shared(big)[0]
+    n0 = tc.launch_count
+    t1_ = time.perf_counter()
+    e32 = torch.empty(len(sample), dtype=f64, device=dev)
+    for n, abc in enumerate(sample):
+        out = ccsd_t.stack_prep([prep(abc)])
+        e32[n] = tc.tile_energy_fused_chunk(*out[:8], eijk, *out[8:10])[0]
+    torch.cuda.synchronize()
+    sec32 = time.perf_counter() - t1_
+    sample_launches = tc.launch_count - n0
+    del big, prep, eijk, out
+    torch.cuda.empty_cache()
+    big = big_of(f64, "xla")
+    tile_energy = ccsd_t.make_tile_energy(big)
+    t1_ = time.perf_counter()
+    e64 = torch.stack([tile_energy(abc) for abc in sample])
+    torch.cuda.synchronize()
+    sec64 = time.perf_counter() - t1_
+    del big, tile_energy
+    torch.cuda.empty_cache()
+    s32, s64 = float(e32.sum()), float(e64.sum())
+    rel_sum = abs(s32 - s64) / abs(s64)
+    rel_tile = float(((e32 - e64).abs() / e64.abs()).max())
+    if not (len(sample) == -(-W8_NTILES // W8_SAMPLE_STRIDE)
+            and sample_launches == len(sample)
+            and rel_sum <= RTOL_W8_SAMPLE and rel_tile <= RTOL_TILE_FP32):
+        raise RuntimeError(f"(T) sample fp32 vs fp64: {len(sample)} tiles, "
+                           f"{sample_launches} launches, sum {rel_sum}, "
+                           f"worst tile {rel_tile}")
+    say(16, "every 41st tile fp32 vs fp64 ok", tiles=len(sample),
+        launches_not_in_record=sample_launches, e_sum_fp32=repr(s32),
+        e_sum_fp64=repr(s64), rel_sum=f"{rel_sum:.3e}",
+        rtol_sum=RTOL_W8_SAMPLE, rel_tile_max=f"{rel_tile:.3e}",
+        rtol_tile=RTOL_TILE_FP32,
+        ms_per_tile_fp32=f"{sec32 / len(sample) * 1e3:.3f}",
+        ms_per_tile_fp64_xla=f"{sec64 / len(sample) * 1e3:.3f}",
+        e_t_estimate_from_sample=f"{2 * W8_SAMPLE_STRIDE * s32:.6f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # (c) the CCSD(T) pipeline through the facade at --small
+    t0 = time.perf_counter()
+    tc.launch_count = 0
+    p32 = pipe.run(True, dev, f32)
+    pipe32_launches = tc.launch_count
+    launches["fused"] += pipe32_launches
+    n0 = tc.launch_count
+    p64 = pipe.run(True, dev, f64)
+    pipe64_launches = tc.launch_count - n0
+    d = (p32["e_corr"] + p32["e_t"]) - (p64["e_corr"] + p64["e_t"])
+    if not (p32["ccsd_converged"] and p64["ccsd_converged"]
+            and abs(d) <= ATOL_MAIN_FP32
+            and pipe32_launches > 0 and pipe64_launches > 0):
+        raise RuntimeError(f"pipeline --small fp32 vs fp64: {d} "
+                           f"({pipe32_launches}, {pipe64_launches} "
+                           f"launches) {p32} {p64}")
+    say(16, "pipeline --small fp32 vs fp64 ok", system=json.dumps(
+        p32["system"]), e_scf=repr(p32["e_scf"]), e_corr=repr(p32["e_corr"]),
+        e_t=repr(p32["e_t"]), d_e_corr_plus_e_t=f"{d:.2e}",
+        atol=ATOL_MAIN_FP32, cycles_fp32=p32["ccsd_cycles"],
+        cycles_fp64=p64["ccsd_cycles"],
+        launches_fp32=pipe32_launches,
+        launches_fp64_not_in_record=pipe64_launches,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -2936,8 +3106,9 @@ def main():
                                            atol=1e-14)
                 nchk += 1
     # fp64 at nocc=28, the top of the staged form (V-term inputs read from
-    # device memory), and at 30, the unstaged form (W exceeds smem)
-    for nocc in (28, 30):
+    # device memory), and at 30 and 32, the unstaged form (W exceeds
+    # smem; at 32 its t2 blocks take the whole 48 KB default)
+    for nocc in (28, 30, 32):
         t1, t2, er = testing.triples_tensors(
             *testing.random_triples_problem(nocc, 4, 9), dev, f64)
         big = ccsd_t._prepare(t1, t2, er, 2, f64, None, None, 1.0, "fused")
@@ -3834,9 +4005,28 @@ def main():
         seconds=f"{time.perf_counter() - t0:.1f}")
 
     # ---- phase 15: the certified (H2O)8/cc-pVTZ campaign ----------------
-    t0 = time.perf_counter()
-    w8_certify_phase(torch, smi, dev)
-    say(15, "done", seconds=f"{time.perf_counter() - t0:.1f}")
+    # its checkpoint goes to a directory of its own under .campaign/, which
+    # phase 16 reads and which is removed after both
+    os.makedirs(os.path.join(ROOT, ".campaign"), exist_ok=True)
+    w8_scratch = tempfile.mkdtemp(prefix="chip_smoke_w8_",
+                                  dir=os.path.join(ROOT, ".campaign"))
+    try:
+        t0 = time.perf_counter()
+        w8_certify_phase(torch, smi, dev, w8_scratch)
+        say(15, "done", seconds=f"{time.perf_counter() - t0:.1f}")
+
+        # ---- phase 16: the full (H2O)8/cc-pVTZ (T) and the pipeline -----
+        t0 = time.perf_counter()
+        w8t_launches = w8_triples_phase(
+            torch, smi, dev, w8_scratch,
+            {"fused": probe_ms, "resident": pms_split})
+        comb_launches += w8t_launches["fused"]
+        res_launches += w8t_launches["resident"]
+        say(16, "done", launches_in_record=json.dumps(w8t_launches),
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        shutil.rmtree(w8_scratch, ignore_errors=True)
+        torch.cuda.empty_cache()
 
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [

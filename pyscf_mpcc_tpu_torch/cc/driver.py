@@ -79,24 +79,34 @@ class RCCSDDriver(StreamObject):
         return self.eris
 
     # -- solvers -----------------------------------------------------------
+    def ladder_ntile(self, eris, vjp=False):
+        """Tiles a virtual axis of the DF ladder: ``self.ntile`` if set,
+        else lib/memory's plan for the device's budget, or one tile on a
+        CPU without config.MAX_MEMORY, which has no device memory to plan
+        against (and with full integrals, which have no ladder)."""
+        if self.ntile:
+            return self.ntile
+        if eris.Lov is None or (self.device.type != "cuda"
+                                and not config.MAX_MEMORY):
+            return 1
+        from pyscf_mpcc_tpu_torch.lib import memory as _mem
+        return _mem.plan_ladder_ntile(self.nocc, self.nmo - self.nocc,
+                                      eris.Lov.shape[0], self.dtype,
+                                      vjp=vjp, device=self.device)
+
     def kernel(self, t1=None, t2=None, eris=None):
         log = logger.Logger(verbose=self.verbose)
         tic = log.timer("")
         if eris is None:
             eris = self.eris or self.ao2mo()
             tic = log.timer("CCSD integral transform", *tic)
-        ntile = self.ntile
-        if not ntile and eris.Lov is not None:
-            from pyscf_mpcc_tpu_torch.lib import memory as _mem
-            ntile = _mem.plan_ladder_ntile(self.nocc, self.nmo - self.nocc,
-                                           eris.Lov.shape[0], self.dtype,
-                                           device=self.device)
         self.converged, self.e_corr, self.t1, self.t2 = rccsd.kernel(
             eris, max_cycle=self.max_cycle, conv_tol=self.conv_tol,
             conv_tol_normt=self.conv_tol_normt, diis_space=self.diis_space,
             level_shift=self.level_shift, t1=t1, t2=t2,
-            ntile=max(ntile, 1), adiis=getattr(self, "_adiis", None),
-            diis_file=self.diis_file)
+            ntile=self.ladder_ntile(eris),
+            adiis=getattr(self, "_adiis", None),
+            diis_file=self.diis_file, verbose=self.verbose)
         self._adiis = None
         log.timer("CCSD iterations", *tic)
         return self.e_corr, self.t1, self.t2
@@ -128,19 +138,13 @@ class RCCSDDriver(StreamObject):
     def solve_lambda(self, t1=None, t2=None, eris=None):
         if eris is None:
             eris = self.eris or self.ao2mo()
-        ntile = self.ntile
-        if not ntile and eris.Lov is not None:
-            # the backward pass keeps a W block and its cotangent live, so
-            # plan a finer tiling than the forward solve
-            from pyscf_mpcc_tpu_torch.lib import memory as _mem
-            ntile = _mem.plan_ladder_ntile(self.nocc, self.nmo - self.nocc,
-                                           eris.Lov.shape[0], self.dtype,
-                                           vjp=True, device=self.device)
+        # the backward pass keeps a W block and its cotangent live, so it
+        # plans a finer tiling than the forward solve
         conv, self.l1, self.l2 = lambda_ad.kernel(
             t1 if t1 is not None else self.t1,
             t2 if t2 is not None else self.t2, eris,
             conv_tol=self.conv_tol_normt, max_cycle=self.max_cycle,
-            ntile=max(ntile, 1))
+            ntile=self.ladder_ntile(eris, vjp=True))
         return self.l1, self.l2
 
     def make_rdm12(self):

@@ -405,6 +405,15 @@ def certify(scf, amps, frozen, device=None):
     return e_lagr, out
 
 
+def default_scratch(small=False):
+    """The checkpoint directory: W8_SCRATCH, by default
+    .campaign/w8_parity/_torch, and its ``small`` subdirectory for
+    --small."""
+    scratch = _env("W8_SCRATCH", os.path.join(ROOT, ".campaign",
+                                              "w8_parity", "_torch"))
+    return os.path.join(scratch, "small") if small else scratch
+
+
 def _npz(path):
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
@@ -417,11 +426,7 @@ def run(device=None, dtype=None, small=False, reuse_scf=False, scratch=None):
     ``scratch`` (default W8_SCRATCH) that exist.  Returns the readings."""
     dev, dtype = _dev.resolve(device, dtype)
     geom, basis, auxbasis, frozen = SMALL if small else FULL
-    if scratch is None:
-        scratch = _env("W8_SCRATCH", os.path.join(ROOT, ".campaign",
-                                                  "w8_parity", "_torch"))
-        if small:
-            scratch = os.path.join(scratch, "small")
+    scratch = scratch or default_scratch(small)
     os.makedirs(scratch, exist_ok=True)
     scf_path = os.path.join(scratch, "scf.npz")
     amps_path = os.path.join(scratch, "amps.npz")

@@ -99,10 +99,10 @@ def ccsd_working_set_bytes(nocc, nvir, naux, ntile=1, dtype="float32",
     return df // ndev + eris4 + t2likes // ndev + tile
 
 
-def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
-                      max_tile=8, device=None, engine="fused",
-                      dot_precision=None):
-    """Tile edge for the CCSD(T) engines (cc/ccsd_t.kernel).
+def triples_tile_bytes(nocc, nvir, naux, T, dtype="float32",
+                       engine="fused", dot_precision=None):
+    """(persistent, live) bytes of the CCSD(T) engines (cc/ccsd_t.kernel)
+    at tile edge T: the model that plan_triples_tile sizes the tile by.
 
     Per-tile live set: six W dot outputs of (T^3 * nocc^3) elements each
     (factor 4 for the dot workspace and the stacked prep), the six ov
@@ -120,11 +120,10 @@ def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
     the parts while t2Ts is split (oovv_T is made after), plus the split's
     f-chunk temporaries (hi upcast and x - hi); a tile adds the split ov
     blocks (tc.w1_ov, K = 3F in 'high') and up to four t2 slices
-    (tc.w1_t2_slice).  Picks the largest even T <= max_tile that fits;
-    minimum 4."""
+    (tc.w1_t2_slice).  Any other engine ('xla') is counted as 'fused' at
+    full precision."""
     from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
     isz = _itemsize(dtype)
-    budget = budget if budget is not None else hbm_budget_bytes(device)
     o2v2 = nvir * nvir * nocc * nocc
     mode = tc.w1_mode(dot_precision)
     bf16_fused = engine == "fused" and mode != "f32"
@@ -135,18 +134,31 @@ def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
         t2like = 3 * isz                               # t2T + t2Ts + oovv_T
     persistent = (t2like * o2v2
                   + (naux * nvir * nvir + naux * nocc * nvir) * isz)
+    live = (6 * T**3 * nocc**3 + 6 * T * T * nocc * nvir) * isz * 4
+    nvp = -(-nvir // T) * T
+    if engine == "resident":
+        opnd = (nvp * (-(-nvp // 32) * 32)
+                * (-(-nocc * nocc // 8) * 8) * isz)
+        live = max(live + opnd, 7 * opnd // 2)
+    if bf16_fused:
+        k = 3 if mode == "split" else 1
+        live += (6 * T * T * nocc + 4 * T * nocc * nocc) * k * nvp * 2
+    return persistent, live
+
+
+def plan_triples_tile(nocc, nvir, naux, dtype="float32", budget=None,
+                      max_tile=8, device=None, engine="fused",
+                      dot_precision=None):
+    """Tile edge for the CCSD(T) engines (cc/ccsd_t.kernel): the largest
+    even T <= max_tile whose live set (triples_tile_bytes) fits in what
+    the persistent tensors leave of the budget; minimum 4."""
+    budget = budget if budget is not None else hbm_budget_bytes(device)
+    persistent, _ = triples_tile_bytes(nocc, nvir, naux, 4, dtype, engine,
+                                       dot_precision)
     avail = max(budget - persistent, budget // 8)
     best = 4
     for T in range(4, max_tile + 1, 2):
-        live = (6 * T**3 * nocc**3 + 6 * T * T * nocc * nvir) * isz * 4
-        nvp = -(-nvir // T) * T
-        if engine == "resident":
-            opnd = (nvp * (-(-nvp // 32) * 32)
-                    * (-(-nocc * nocc // 8) * 8) * isz)
-            live = max(live + opnd, 7 * opnd // 2)
-        if bf16_fused:
-            k = 3 if mode == "split" else 1
-            live += (6 * T * T * nocc + 4 * T * nocc * nocc) * k * nvp * 2
-        if live <= avail:
+        if triples_tile_bytes(nocc, nvir, naux, T, dtype, engine,
+                              dot_precision)[1] <= avail:
             best = T
     return best

@@ -333,11 +333,12 @@ int launch(int K, int nt, int o, int nsplit, int staged,
   auto kern = prof ? combine_kernel<T, true, true>
                    : (staged ? combine_kernel<T, true, false>
                              : combine_kernel<T, false, false>);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  // always: the static shared memory (wbase, cp) counts against the
+  // 48 KB default too, so the unstaged form's 6 o^2 fp64 values at o = 32,
+  // exactly 48 KB, fail to launch without the attribute
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(K * nt * nt * nt), (unsigned)a.nsplit);
   kern<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       a);

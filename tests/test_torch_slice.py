@@ -49,7 +49,8 @@ LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
                 "lib.linalg", "cc.eom", "cc.momgfccsd", "lib.hoststore",
                 "cc.stream_ladder", "parallel.mesh", "parallel.distributed",
                 "parallel.ladder_shard", "parallel.ccsd_shard",
-                "examples.w8_parity_certify")
+                "examples.w8_parity_certify", "examples.w8_triples",
+                "examples.w8_ccsd_pipeline")
 # the JAX package's example scripts (the repo's examples/): the port's
 # twins carry their own copies of what they take from them
 ROOT_EXAMPLES = {"examples"} | {
@@ -254,22 +255,30 @@ def test_eom_stream_entry_points_default_to_cuda(name):
 
 
 def _campaign_entry_points():
+    from pyscf_mpcc_tpu_torch.examples import w8_ccsd_pipeline as pipe
     from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
+    from pyscf_mpcc_tpu_torch.examples import w8_triples as w8t
     scf = {"nelectron": 2}
     return {
         "w8_run": lambda: w8.run(),
         "w8_main": lambda: w8.main([]),
         "w8_stage_fp32": lambda: w8.stage_fp32(scf, 0),
         "w8_certify": lambda: w8.certify(scf, {}, 0),
+        "w8_triples_run": lambda: w8t.run(),
+        "w8_triples_main": lambda: w8t.main([]),
+        "w8_pipeline_run": lambda: pipe.run(),
+        "w8_pipeline_main": lambda: pipe.main(["--full"]),
     }
 
 
 @pytest.mark.parametrize("name", list(_campaign_entry_points()))
 def test_campaign_entry_points_default_to_cuda(name):
-    """The certified (H2O)8 campaign's entry points resolve a missing
-    device to the card (lib/device.resolve) and raise where there is
-    none, before any SCF or checkpoint work."""
+    """The (H2O)8 campaigns' entry points (the certified CCSD, the full
+    (T), the CCSD(T) pipeline) resolve a missing device to the card
+    (lib/device.resolve) and raise where there is none, before any SCF
+    or checkpoint work."""
     if torch.cuda.is_available():
-        pytest.skip("the card is present; chip_smoke.py phase 15 runs these")
+        pytest.skip("the card is present; chip_smoke.py phases 15-16 run "
+                    "these")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _campaign_entry_points()[name]()
