@@ -13,9 +13,10 @@ each, started together), then runs:
      and their register reports;
   1. the (T) epilogue kernel (triples_combine) against its plain PyTorch
      version on the card: random small problems in fp64 (staged and
-     unstaged forms), and one tile at the (H2O)8 shape in fp32, with
-     timings and the split of a cell's time by phase (the kernel's
-     profile form);
+     unstaged forms), every tile of a random problem at phase 17's nocc
+     21 with a ragged nvir (19 at tile 8) in fp32 and fp64, and one tile
+     at the (H2O)8 shape in fp32, with timings and the split of a cell's
+     time by phase (the kernel's profile form);
   2. pinned H2O/cc-pVDZ energies in fp64 on the card (incore integrals):
      E(CCSD) and E(T), the latter through the CUDA kernel;
   3. the DF main path through the user entry points,
@@ -143,10 +144,10 @@ each, started together), then runs:
      of H2O/sto-3g, MOM-GF poles against Davidson IP/EA and its moment
      conservation; (b) the H2O/cc-pVDZ roots in fp32 against fp64; (c)
      benzene/cc-pVDZ (nocc 21, nvir 93) through examples/eom_benzene in
-     fp32: EE (the lowest 2 of the 4 pinned roots: the host Davidson of
-     all four took 208-219 s, which phase 15 needs), IP (3), EA (3)
-     against the reference's pins, with
-     Davidson cycles, sigmas, s per sigma, the host Davidson's share and
+     fp32: EE (the 4 pinned roots; the EE Davidson keeps its subspace on
+     the card, lib/device_davidson), IP (3), EA (3) against the
+     reference's pins, with
+     Davidson cycles, sigmas, s per sigma, the Davidson's share and
      peaks, the host RHF and ERI apart; (d) one EE sigma at the (H2O)8
      shape (s, in sweeps, and peak at the EOM planner's ntile); (e) the
      streamed ladder there at ntile 8 (a seeded t1 of 1e-2): one sweep
@@ -195,9 +196,11 @@ each, started together), then runs:
      E_SCF within 1e-8 Ha and the certified E_corr within 1e-7 Ha of the
      JAX package's record (docs/PARITY.md: -608.4722402812,
      -2.1875497066), each stage's seconds and peak, the raw fp32 gap
-     (not gated); then the certification again from the checkpoint
-     files (--reuse-scf), bit for bit.  The checkpoint stays for phase
-     16 and is removed after it.
+     (not gated).  The checkpoint stays for phase 16 and is removed
+     after it.  (Its --reuse-scf rerun, about 10 s, is cut for phase
+     17's budget; it runs on the CPU in tests/test_torch_w8_certify.py.
+     Phase 17 drives benzene's SCF reuse and its certification from the
+     checkpoint files on the card, bit for bit.)
  16. the full (H2O)8/cc-pVTZ (T) and the CCSD(T) pipeline
      (w8_triples_phase): (a) examples/w8_triples.run from phase 15's
      checkpoint, all 26,235 tiles twice, through engine='auto' at full
@@ -206,18 +209,34 @@ each, started together), then runs:
      full precision, each within 1e-5 of the JAX package's TPU record
      (docs/PARITY.md: -0.0713274378, -0.0713276280), seconds, ms a tile
      beside the 64-tile probes', peak beside the planner's model; (b)
-     every 41st tile (640) through the fused engine's prep and the
+     every 82nd tile (320; every 41st before phase 17, cut for its
+     budget) through the fused engine's prep and the
      combine kernel in fp32 against engine='xla' in fp64 on fp64
      integrals, the sum within 1e-6 and each tile within 1e-5; (c)
      examples/w8_ccsd_pipeline --small through the facade (gto -> DF-RHF
      -> CCSD(mf, frozen=2) -> .ccsd_t()) in fp32 against fp64, E_corr +
      E(T) within 1e-6 Ha.
+ 17. the benzene/cc-pVTZ campaign (benzene_phase), the reference
+     program's headline, through examples/benzene.run at full width
+     (all-electron, nocc 21, nvir 243, naux 360 with weigend fitting,
+     nao 264): the DF-RHF with J/K in fp64 on the card, fp32 DF-MP2,
+     CCSD (conv_tol 1e-8, conv_tol_normt 1e-6) on the device ring, the
+     full (T), 5,456 tiles of edge 8 through engine='auto' (the combine
+     kernel), Lambda (|dl| < 3e-6), the checkpoint and the fp64
+     certification; E_SCF within 1e-8 Ha of the JAX package's fp64 pin,
+     MP2 in fp32 within 1e-6 of fp64 on the same MOs, the certified E_L
+     within 1e-7 of the JAX record (docs/PARITY.md: -1.065664516);
+     benzene.run again on its own SCF file (the SCF reused; E_SCF, MP2
+     and CCSD bit for bit), the certification again from the checkpoint
+     files (--stage64) bit for bit, and every 11th tile (496) in fp32 against engine='xla' in
+     fp64 (sum 1e-6, each tile 1e-5); seconds and peak by stage, cycles,
+     ms a tile, beside the reference's 477.0 s on 16 Xeon cores.
 
 Every phase raises on failure.  The last lines are the kernel record
 (each kernel's launches on the full-width probe, phase 11's fp32 ones
 outside its comparisons with engine='xla', phase 13(a)'s mesh probes,
-phase 14's timed fused probes, and phase 16's full runs and fp32
-pipeline, its error against the
+phase 14's timed fused probes, phase 16's full runs and fp32
+pipeline, and phase 17's full (T), its error against the
 plain version, its time, the plain version's time and the least time the
 card could take, from the peak rates below), the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -455,10 +474,10 @@ EOM_FP32_TOL, ATOL_EOM_FP32 = 1e-5, 2e-5
 # benzene/cc-pVDZ in fp32 against benzene_ccpvdz: twice the pass bar of
 # the JAX package's examples/eom_benzene_chip.py (1e-3 eV)
 ATOL_BENZENE_EV = 2e-3
-# the EE sector's lowest roots (of the four pinned): its host Davidson
-# took 207.9-219.3 s at four, the budget phase 15 needs (at one root the
-# Davidson lands on the second state, 6.868 eV)
-BENZENE_EE_ROOTS = 2
+# the EE sector's lowest roots: all four pinned (at one root the Davidson
+# lands on the second state, 6.868 eV; the host Davidson took 207.9-219.3
+# s at four, so two ran until lib/device_davidson took the EE subspace)
+BENZENE_EE_ROOTS = 4
 # the streamed ladder at the (H2O)8 shape: row tiles a virtual axis, and
 # streamed against resident in fp32 (the same products in other GEMM
 # blockings; relative norm of t2 and of the Lambda residual)
@@ -492,12 +511,23 @@ RTOL_TIER = 1e-5
 # moves to first order with the amplitudes (about 2 E(T) |dt|/|t|, 1e-6
 # to 3e-6), hence 1e-5; the tight checks are the card's own: dot-high
 # against full precision within 1e-6 (the TPU's 1.8e-7,
-# docs/PARITY.md:113-114), and every 41st tile (640) in fp32 against
-# fp64 (the sum within 1e-6, each tile within RTOL_TILE_FP32)
+# docs/PARITY.md:113-114), and every 82nd tile (320) in fp32 against
+# fp64 (the sum within 1e-6, each tile within RTOL_TILE_FP32); every
+# 41st before phase 17, cut for its budget
 W8_TILE, W8_NTILES = 8, 26235
 W8_ET_TPU = {"highest": -0.0713274378, "dot-high": -0.0713276280}
 ATOL_W8_ET_RECORD, ATOL_W8_ET_TIER = 1e-5, 1e-6
-W8_SAMPLE_STRIDE, RTOL_W8_SAMPLE = 41, 1e-6
+W8_SAMPLE_STRIDE, RTOL_W8_SAMPLE = 82, 1e-6
+# phase 17: benzene/cc-pVTZ all-electron, weigend fitting (nao 264), the
+# JAX script's settings; its pins and record are examples/benzene.PINS and
+# RECORD.  E_SCF to 1e-8 Ha as phase 15; MP2 in fp32 against fp64 on the
+# same MOs to ATOL_MAIN_FP32; the certified E_corr to the BASELINE gate,
+# 1e-7 Ha (the record carries 9 decimals); nvir 243 pads to 248 at tile
+# 8 (31 tile rows, the last ragged); every 11th tile (496) in fp32
+# against fp64 as phase 16(b)
+BZ_SHAPE, BZ_NAO = (21, 243, 360), 264
+ATOL_BZ_SCF, ATOL_BZ_CERTIFIED = 1e-8, 1e-7
+BZ_TILE, BZ_NTILES, BZ_SAMPLE_STRIDE = 8, 5456, 11
 
 
 def say(phase, msg, **kw):
@@ -2220,14 +2250,14 @@ def eom_stream_phase(torch, smi, dev, sweep_sec):
             atol_ev=ATOL_BENZENE_EV, cycles=r["cycles"],
             matvecs=r["matvecs"], s_per_sigma=f"{r['s_per_sigma']:.4f}",
             sec=f"{r['sec']:.1f}",
-            host_davidson_sec=f"{r['host_davidson_sec']:.1f}",
+            davidson_sec=f"{r['davidson_sec']:.1f}",
             peak_gib=r["peak_gib"])
     say(12, "benzene set-up", card=json.dumps(smi),
         e_scf=repr(bz["e_scf"]), d_scf=f"{bz['d_scf_vs_ref']:.2e}",
         e_corr=repr(bz["e_corr"]), d_ccsd=f"{bz['d_ccsd_vs_ref']:.2e}",
         host_rhf_s=f"{bz['rhf_s']:.1f}", host_eri_s=f"{bz['eri_s']:.1f}",
         device_eris_s=f"{bz['eris_s']:.2f}", ccsd_s=f"{bz['ccsd_s']:.1f}",
-        fp64="left out (the host Davidson would double the phase)",
+        fp64="left out (the script's budget)",
         seconds=f"{time.perf_counter() - t0:.1f}")
 
     # (d) one EE sigma at the (H2O)8 shape (cold: the call's first run)
@@ -2827,9 +2857,13 @@ def bf16_tier_phase(torch, smi, dev):
 def w8_certify_phase(torch, smi, dev, scratch):
     """Phase 15: examples/w8_parity_certify.run at full width on the card
     (SCF with fp64 J/K on the card, fp32 CCSD and Lambda, the checkpoint,
-    the fp64 certification), held to the JAX package's record; then the
-    certification again from the checkpoint files (--reuse-scf), bit for
-    bit.  The checkpoint goes to ``scratch``, which phase 16 reads."""
+    the fp64 certification), held to the JAX package's record.  The
+    checkpoint goes to ``scratch``, which phase 16 reads.  The
+    certification again from the checkpoint files (--reuse-scf, about
+    10 s) is cut for phase 17's budget (tests/test_torch_w8_certify.py
+    runs it on the CPU); phase 17 reruns benzene.run on its own SCF file
+    and certifies from its own checkpoint through the same
+    campaign.certify, bit for bit."""
     from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2873,24 +2907,60 @@ def w8_certify_phase(torch, smi, dev, scratch):
         peak_certify_gib=r["peak_certify_gib"],
         checkpoint_write_s=f"{r['checkpoint_s']:.1f}",
         seconds=f"{sec:.1f}")
-    # the certification again from the checkpoint (--reuse-scf)
+
+
+def tile_sample(torch, dev, eris_of, t1, t2, tile, stride):
+    """Every stride-th tile of the (T) tile list at edge ``tile`` through
+    the fused engine's calls in fp32 (its prep, the combine kernel at
+    K = 1) against engine='xla' in fp64 on fp64 integrals and the upcast
+    amplitudes.  eris_of(dtype): the integrals in dtype on dev; t1, t2:
+    the amplitudes (numpy).  Returns tiles, the combine kernel's launches
+    (comparisons, outside the record), the fp32 and fp64 sums, the
+    relative gap of the sums and of the worst tile, and ms a tile each."""
+    from pyscf_mpcc_tpu_torch.cc import ccsd_t
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    f32, f64 = torch.float32, torch.float64
+    sample = ccsd_t._tile_triples(-(-t1.shape[1] // tile))[::stride]
+
+    def big_of(dtype, engine):
+        amps = [torch.as_tensor(x).to(dev, dtype) for x in (t1, t2)]
+        return ccsd_t._prepare(*amps, eris_of(dtype), tile, dtype, None,
+                               None, 1.0, engine)
+
+    big = big_of(f32, "fused")
+    prep, eijk = ccsd_t.make_prep_fused(big), ccsd_t.fused_shared(big)[0]
+    n0 = tc.launch_count
     t0 = time.perf_counter()
-    r2 = w8.run(dev, reuse_scf=True, scratch=scratch)
-    if not (r2["scf_reused"] and r2["amps_reused"]
-            and r2["e_lagr"] == r["e_lagr"]):
-        raise RuntimeError(f"--reuse-scf: {r2} against {r['e_lagr']}")
-    say(15, "reuse from the checkpoint ok", e_lagr=repr(r2["e_lagr"]),
-        bit_equal=True, ntile64=r2["ntile64"],
-        eris64_s=f"{r2['eris64_s']:.2f}",
-        residual64_s=f"{r2['residual64_s']:.2f}",
-        seconds=f"{time.perf_counter() - t0:.1f}")
+    e32 = torch.empty(len(sample), dtype=f64, device=dev)
+    for n, abc in enumerate(sample):
+        out = ccsd_t.stack_prep([prep(abc)])
+        e32[n] = tc.tile_energy_fused_chunk(*out[:8], eijk, *out[8:10])[0]
+    torch.cuda.synchronize()
+    sec32 = time.perf_counter() - t0
+    launches = tc.launch_count - n0
+    del big, prep, eijk, out
+    torch.cuda.empty_cache()
+    big = big_of(f64, "xla")
+    tile_energy = ccsd_t.make_tile_energy(big)
+    t0 = time.perf_counter()
+    e64 = torch.stack([tile_energy(abc) for abc in sample])
+    torch.cuda.synchronize()
+    sec64 = time.perf_counter() - t0
+    del big, tile_energy
+    torch.cuda.empty_cache()
+    s32, s64 = float(e32.sum()), float(e64.sum())
+    return dict(tiles=len(sample), launches=launches, sum32=s32, sum64=s64,
+                rel_sum=abs(s32 - s64) / abs(s64),
+                rel_tile=float(((e32 - e64).abs() / e64.abs()).max()),
+                ms32=sec32 / len(sample) * 1e3,
+                ms64=sec64 / len(sample) * 1e3)
 
 
 def w8_triples_phase(torch, smi, dev, scratch, probe_ms):
     """Phase 16: the full (T) at (H2O)8/cc-pVTZ from phase 15's
     checkpoint in ``scratch`` (examples/w8_triples.run, every tile) at
     full precision and at dot-high through engine='auto', which must take
-    the combine kernel and the resident kernel in mode split; every 41st
+    the combine kernel and the resident kernel in mode split; every 82nd
     tile through the fused engine's calls in fp32 against engine='xla' in
     fp64 on fp64 integrals of the same checkpoint; the CCSD(T) pipeline
     through the facade (examples/w8_ccsd_pipeline) at --small in fp32
@@ -2898,7 +2968,6 @@ def w8_triples_phase(torch, smi, dev, scratch, probe_ms):
     5), printed beside the full runs'.  Returns the launches: those of
     the full runs and of the fp32 pipeline join rows 1 and 3 of the
     record; the sample's and the fp64 pipeline's are apart."""
-    from pyscf_mpcc_tpu_torch.cc import ccsd_t
     from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
     from pyscf_mpcc_tpu_torch.examples import w8_ccsd_pipeline as pipe
     from pyscf_mpcc_tpu_torch.examples import w8_triples as w8t
@@ -2946,60 +3015,29 @@ def w8_triples_phase(torch, smi, dev, scratch, probe_ms):
         atol=ATOL_W8_ET_TIER, seconds=f"{sec:.1f}")
 
     # (b) a uniform sample of the tile list: fp32 through the fused
-    # engine's calls (its prep, the combine kernel at K = 1) against the
-    # 'xla' engine in fp64 on fp64 integrals and the upcast amplitudes
+    # engine's calls against the 'xla' engine in fp64
     t0 = time.perf_counter()
     ck = w8t.load(scratch)
-    sample = ccsd_t._tile_triples(-(-ck["nvir"] // W8_TILE))[
-        ::W8_SAMPLE_STRIDE]
 
-    def big_of(dtype, engine):
-        er = eris_mod.make_eris_df(
+    def eris_of(dtype):
+        return eris_mod.make_eris_df(
             ck["B"], ck["mo_full"][:, ck["frozen"]:], ck["fock_ao"],
             ck["nocc"], dtype=dtype, keep_ovvv=False, device=dev)
-        t1, t2 = (torch.as_tensor(ck[k]).to(dev, dtype)
-                  for k in ("t1", "t2"))
-        return ccsd_t._prepare(t1, t2, er, W8_TILE, dtype, None, None, 1.0,
-                               engine)
 
-    big = big_of(f32, "fused")
-    prep, eijk = ccsd_t.make_prep_fused(big), ccsd_t.fused_shared(big)[0]
-    n0 = tc.launch_count
-    t1_ = time.perf_counter()
-    e32 = torch.empty(len(sample), dtype=f64, device=dev)
-    for n, abc in enumerate(sample):
-        out = ccsd_t.stack_prep([prep(abc)])
-        e32[n] = tc.tile_energy_fused_chunk(*out[:8], eijk, *out[8:10])[0]
-    torch.cuda.synchronize()
-    sec32 = time.perf_counter() - t1_
-    sample_launches = tc.launch_count - n0
-    del big, prep, eijk, out
-    torch.cuda.empty_cache()
-    big = big_of(f64, "xla")
-    tile_energy = ccsd_t.make_tile_energy(big)
-    t1_ = time.perf_counter()
-    e64 = torch.stack([tile_energy(abc) for abc in sample])
-    torch.cuda.synchronize()
-    sec64 = time.perf_counter() - t1_
-    del big, tile_energy
-    torch.cuda.empty_cache()
-    s32, s64 = float(e32.sum()), float(e64.sum())
-    rel_sum = abs(s32 - s64) / abs(s64)
-    rel_tile = float(((e32 - e64).abs() / e64.abs()).max())
-    if not (len(sample) == -(-W8_NTILES // W8_SAMPLE_STRIDE)
-            and sample_launches == len(sample)
-            and rel_sum <= RTOL_W8_SAMPLE and rel_tile <= RTOL_TILE_FP32):
-        raise RuntimeError(f"(T) sample fp32 vs fp64: {len(sample)} tiles, "
-                           f"{sample_launches} launches, sum {rel_sum}, "
-                           f"worst tile {rel_tile}")
-    say(16, "every 41st tile fp32 vs fp64 ok", tiles=len(sample),
-        launches_not_in_record=sample_launches, e_sum_fp32=repr(s32),
-        e_sum_fp64=repr(s64), rel_sum=f"{rel_sum:.3e}",
-        rtol_sum=RTOL_W8_SAMPLE, rel_tile_max=f"{rel_tile:.3e}",
-        rtol_tile=RTOL_TILE_FP32,
-        ms_per_tile_fp32=f"{sec32 / len(sample) * 1e3:.3f}",
-        ms_per_tile_fp64_xla=f"{sec64 / len(sample) * 1e3:.3f}",
-        e_t_estimate_from_sample=f"{2 * W8_SAMPLE_STRIDE * s32:.6f}",
+    s = tile_sample(torch, dev, eris_of, ck["t1"], ck["t2"], W8_TILE,
+                    W8_SAMPLE_STRIDE)
+    if not (s["tiles"] == -(-W8_NTILES // W8_SAMPLE_STRIDE)
+            and s["launches"] == s["tiles"]
+            and s["rel_sum"] <= RTOL_W8_SAMPLE
+            and s["rel_tile"] <= RTOL_TILE_FP32):
+        raise RuntimeError(f"(T) sample fp32 vs fp64: {s}")
+    say(16, "every 82nd tile fp32 vs fp64 ok", tiles=s["tiles"],
+        launches_not_in_record=s["launches"], e_sum_fp32=repr(s["sum32"]),
+        e_sum_fp64=repr(s["sum64"]), rel_sum=f"{s['rel_sum']:.3e}",
+        rtol_sum=RTOL_W8_SAMPLE, rel_tile_max=f"{s['rel_tile']:.3e}",
+        rtol_tile=RTOL_TILE_FP32, ms_per_tile_fp32=f"{s['ms32']:.3f}",
+        ms_per_tile_fp64_xla=f"{s['ms64']:.3f}",
+        e_t_estimate_from_sample=f"{2 * W8_SAMPLE_STRIDE * s['sum32']:.6f}",
         seconds=f"{time.perf_counter() - t0:.1f}")
 
     # (c) the CCSD(T) pipeline through the facade at --small
@@ -3025,6 +3063,139 @@ def w8_triples_phase(torch, smi, dev, scratch, probe_ms):
         cycles_fp64=p64["ccsd_cycles"],
         launches_fp32=pipe32_launches,
         launches_fp64_not_in_record=pipe64_launches,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def benzene_phase(torch, smi, dev, scratch):
+    """Phase 17: examples/benzene.run at cc-pVTZ on the card (the DF-RHF
+    with fp64 J/K on the card, fp32 DF-MP2, CCSD, the full (T) through
+    engine='auto', Lambda, the checkpoint in ``scratch`` and the fp64
+    certification), held to the JAX package's pins and record; MP2 in
+    fp64 on the same MOs; the run again on its own SCF file (reused;
+    E_SCF, MP2 and CCSD bit for bit); the certification again from the
+    checkpoint files alone (--stage64), bit for bit; every 11th tile
+    through the fused engine's calls in fp32 against engine='xla' in
+    fp64.  Returns
+    the combine kernel's launches of the run, which join row 1 of the
+    record (the sample's are apart)."""
+    from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
+    from pyscf_mpcc_tpu_torch.examples import benzene as bz
+    from pyscf_mpcc_tpu_torch.mp import mp2
+    from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
+    f64 = torch.float64
+    torch.cuda.empty_cache()
+    tc.launch_count = 0
+    t0 = time.perf_counter()
+    r = bz.run(dev, "cc-pvtz", certify=True, triples=True, scratch=scratch)
+    sec = time.perf_counter() - t0
+    launches = tc.launch_count
+
+    # MP2 in fp64 on the same MOs: the integrals of the checkpoint in
+    # fp64, which the sample's reference reuses
+    scf, amps = bz.load_checkpoint("cc-pvtz", scratch)
+    nocc = int(scf["nelectron"]) // 2
+
+    def eris_of(dtype):
+        return eris_mod.make_eris_df(scf["B"], scf["mo_full"],
+                                     scf["fock_ao"], nocc, dtype=dtype,
+                                     keep_ovvv=False, device=dev)
+
+    er64 = eris_of(f64)
+    e_mp2_64 = float(mp2.df_kernel(er64.mo_energy[:nocc],
+                                   er64.mo_energy[nocc:], er64.Lov)[0])
+    d_mp2 = r["e_corr_mp2_fp32"] - e_mp2_64
+    shape = (r["nocc"], r["nvir"], r["naux"])
+    checks = {
+        "shape": shape == BZ_SHAPE and r["nao"] == BZ_NAO,
+        "scf": abs(r["d_scf_vs_pin"]) < ATOL_BZ_SCF,
+        "mp2_fp32_vs_fp64": abs(d_mp2) < ATOL_MAIN_FP32,
+        "ccsd_converged": r["converged"],
+        "lambda_converged": r["lambda_converged"],
+        "triples": (r["triples_engine"], r["triples_tile"],
+                    r["triples_tiles"]) == ("fused", BZ_TILE, BZ_NTILES),
+        "launches": launches == r["triples_launches"] == BZ_NTILES,
+        "certified": abs(r["d_certified_vs_record"]) < ATOL_BZ_CERTIFIED}
+    if not all(checks.values()):
+        raise RuntimeError(f"benzene/cc-pVTZ campaign: {checks} "
+                           f"{launches} launches, MP2 fp64 {e_mp2_64!r} "
+                           f"{r}")
+    st, pk = r["stage_s"], r["peak_gib"]
+    say(17, "benzene/cc-pVTZ scf and mp2 ok", card=json.dumps(smi),
+        nao=r["nao"], shape=json.dumps(shape), e_scf=repr(r["e_scf"]),
+        d_scf_vs_pin=f"{r['d_scf_vs_pin']:.2e}", atol=ATOL_BZ_SCF,
+        jk=json.dumps(r["jk"]), df_s=f"{r['df_s']:.1f}",
+        scf_cycles=r["scf_cycles"], jk_gap=f"{r['jk_gap']:.2e}",
+        e_mp2_fp32=repr(r["e_corr_mp2_fp32"]), e_mp2_fp64=repr(e_mp2_64),
+        d_mp2_fp32_vs_fp64=f"{d_mp2:.2e}", atol_mp2=ATOL_MAIN_FP32,
+        d_mp2_vs_pin=f"{r['d_mp2_vs_pin']:.2e}")
+    say(17, "benzene/cc-pVTZ fp32 ccsd, (T) and lambda ok",
+        card=json.dumps(smi), ccsd=json.dumps(r["ccsd_diis"]),
+        ccsd_cycles=r["ccsd_cycles"], final_dt=f"{r['ccsd_normt']:.3e}",
+        e_corr_fp32=repr(r["e_corr_fp32"]),
+        ccsd_solve_s=f"{r['ccsd_solve_sec']:.2f}",
+        reference_16core_cpu_ccsd_s=r["reference_ccsd_sec"],
+        speedup_vs_reference=r["speedup_vs_reference"],
+        e_t=repr(r["e_t_fp32"]), engine=r["triples_engine"],
+        tile=r["triples_tile"], tiles=r["triples_tiles"],
+        launches=launches,
+        ms_per_tile=f"{r['triples_ms_per_tile']:.4f}",
+        lam=json.dumps(r["lambda_diis"]), lambda_cycles=r["lambda_cycles"],
+        final_dl=f"{r['lambda_dl']:.3e}")
+    say(17, "benzene/cc-pVTZ certified ok", card=json.dumps(smi),
+        e_lagr=repr(r["e_corr_fp64_lagrangian"]),
+        d_certified_vs_record=f"{r['d_certified_vs_record']:.2e}",
+        atol=ATOL_BZ_CERTIFIED, raw_fp32_gap=f"{r['fp32_raw_dE']:.3e}",
+        ntile64=r["ntile64"],
+        stage_s=json.dumps({k: round(v, 3) for k, v in st.items()}),
+        peak_gib=json.dumps(pk), run_s=f"{sec:.1f}",
+        clocks_after=json.dumps(nvidia_smi(CLOCKS)))
+
+    # benzene.run again on its own checkpoint: the SCF reused from its
+    # file (the JAX script's SCF cache), then the integrals, MP2 and CCSD,
+    # each bit for bit against the first run
+    t0 = time.perf_counter()
+    r2 = bz.run(dev, "cc-pvtz", certify=False, triples=False,
+                scratch=scratch)
+    keys = ("e_scf", "e_corr_mp2_fp32", "e_corr_fp32", "ccsd_cycles")
+    if not (r2["scf_reused"] and all(r2[k] == r[k] for k in keys)):
+        raise RuntimeError(f"rerun on the SCF checkpoint: "
+                           f"{ {k: (r2[k], r[k]) for k in keys} } "
+                           f"reused {r2['scf_reused']}")
+    say(17, "rerun from the scf checkpoint ok", scf_reused=True,
+        bit_equal=",".join(keys), e_corr_fp32=repr(r2["e_corr_fp32"]),
+        stage_s=json.dumps({k: round(v, 3)
+                            for k, v in r2["stage_s"].items()}),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # the certification again from the checkpoint files alone (--stage64)
+    t0 = time.perf_counter()
+    e_l64, _ = bz.certify_from_checkpoint("cc-pvtz", dev, scratch)
+    if e_l64 != r["e_corr_fp64_lagrangian"]:
+        raise RuntimeError(f"--stage64: {e_l64!r} against "
+                           f"{r['e_corr_fp64_lagrangian']!r}")
+    say(17, "certification from the checkpoint ok", e_lagr=repr(e_l64),
+        bit_equal=True, seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # every 11th tile, fp32 through the fused engine's calls against
+    # engine='xla' in fp64
+    t0 = time.perf_counter()
+    s = tile_sample(torch, dev, lambda dt: er64 if dt == f64 else
+                    eris_of(dt), amps["t1"], amps["t2"], BZ_TILE,
+                    BZ_SAMPLE_STRIDE)
+    del er64
+    if not (s["tiles"] == BZ_NTILES // BZ_SAMPLE_STRIDE
+            and s["launches"] == s["tiles"]
+            and s["rel_sum"] <= RTOL_W8_SAMPLE
+            and s["rel_tile"] <= RTOL_TILE_FP32):
+        raise RuntimeError(f"benzene (T) sample fp32 vs fp64: {s}")
+    say(17, "every 11th tile fp32 vs fp64 ok", tiles=s["tiles"],
+        launches_not_in_record=s["launches"], e_sum_fp32=repr(s["sum32"]),
+        e_sum_fp64=repr(s["sum64"]), rel_sum=f"{s['rel_sum']:.3e}",
+        rtol_sum=RTOL_W8_SAMPLE, rel_tile_max=f"{s['rel_tile']:.3e}",
+        rtol_tile=RTOL_TILE_FP32, ms_per_tile_fp32=f"{s['ms32']:.3f}",
+        ms_per_tile_fp64_xla=f"{s['ms64']:.3f}",
         seconds=f"{time.perf_counter() - t0:.1f}")
     torch.cuda.empty_cache()
     return launches
@@ -3056,6 +3227,7 @@ def main():
     dev = torch.device("cuda")
 
     # ---- phase 0: environment --------------------------------------------
+    t_start = t_phase = time.perf_counter()
     smi = nvidia_smi("name,power.limit").strip()
     devpol.set_fp32_precision()
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -3076,6 +3248,9 @@ def main():
             if "registers" in ln or "spill" in ln or "wgmma" in ln:
                 say(0, "ptxas", kernel=name, line=json.dumps(ln.strip()))
     say(0, "clocks", sm_max_power_temp=json.dumps(nvidia_smi(CLOCKS)))
+
+    say(0, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
 
     # ---- phase 1: kernel against its plain version -----------------------
     nchk = 0
@@ -3119,6 +3294,37 @@ def main():
                                    rtol=RTOL_FP64, atol=1e-14)
         nchk += 1
     say(1, "random problems fp64 ok", cases=nchk, rtol=RTOL_FP64)
+    # phase 17's width before its full run: nocc 21 (odd, not a multiple
+    # of the 16-byte vector, so the W build loads one value at a time) and
+    # a ragged nvir (19 at tile 8: the last tile row pads 5 virtuals), DF
+    # factors in place of ovvv, every tile of the list at K = 1 as the
+    # path launches them, in fp32 and fp64.  At nocc 21 both dtypes take
+    # the staged form with the V-term inputs in shared memory; the
+    # unstaged form starts past 28 in fp64 (checked above) and 36 in fp32
+    lib = tc._lib()
+    for dtype, rtol in ((f32, RTOL_TILE_FP32), (f64, RTOL_FP64)):
+        t1, t2, er = testing.triples_tensors(
+            *testing.random_triples_problem(21, 19, 21, naux=30), dev, dtype)
+        big = ccsd_t._prepare(t1, t2, er, 8, dtype, None, None, 1.0,
+                              "fused")
+        prep, eijk = ccsd_t.make_prep_fused(big), ccsd_t.fused_shared(big)[0]
+        trips = ccsd_t._tile_triples(big["nvp"] // 8)
+        err = 0.0
+        for abc in trips:
+            out = ccsd_t.stack_prep([prep(abc)])
+            args = (*out[:8], eijk, *out[8:10])
+            e_k = tc.tile_energy_fused_chunk(*args)
+            e_p = tc.tile_energy_fused_reference_chunk(*args)
+            torch.testing.assert_close(e_k, e_p, rtol=rtol, atol=1e-14)
+            err = max(err, float((e_k - e_p).abs().max()
+                                 / e_p.abs().max()))
+        isz = dtype.itemsize
+        say(1, "nocc 21, ragged nvir ok", dtype=str(dtype), nvir=19, tile=8,
+            tiles=len(trips), rtol=rtol, rel_err_max=f"{err:.2e}",
+            staged=lib.triples_combine_staged_bytes(21, isz)
+            <= lib.triples_combine_smem_max(),
+            v_staged=bool(lib.triples_combine_v_staged(21, isz)))
+    del big, prep, out, args
 
     gen = torch.Generator(device=dev).manual_seed(0)
     beris = testing.synthetic_eris(NOCC, NVIR, NAUX, device=dev, dtype=f32,
@@ -3176,6 +3382,9 @@ def main():
         abs_err=f"{abs(e_prof.item() - e_p):.3e}")
     del args, out
 
+    say(1, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+
     # ---- phase 2: pinned fp64 energies on the card -----------------------
     def rhf(geom, df=False):
         mf = RHF(testing.mol_of(geom))
@@ -3203,6 +3412,9 @@ def main():
     say(2, "pinned fp64 ok", e_ccsd_err=f"{d_ccsd:.2e}",
         e_t=repr(e_t), e_t_err=f"{d_t:.2e}", kernel_launches=nl,
         seconds=f"{time.perf_counter() - t0:.1f}")
+
+    say(2, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
 
     # ---- phase 3: the DF main path through the user entry points ---------
     t0 = time.perf_counter()
@@ -3235,6 +3447,9 @@ def main():
     say(3, "main-path tile ok", shape=f"o={big['o']},T={TILE}",
         nvir=cc32.t1.shape[1], rtol=RTOL_TILE_FP32)
     del cc32, cc64, big, out, args
+
+    say(3, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
 
     # ---- phase 4: the (H2O)8 shape ---------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -3349,6 +3564,9 @@ def main():
         plain_ms_per_tile_k4=f"{chunk_plain_ms:.3f}",
         bound_ms_per_tile=f"{chunk_bound[0] / 4:.3f}", cells=ncell4)
     del outs, args1, c4, args4
+
+    say(4, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
 
     # ---- phase 5: the resident (T) engine --------------------------------
     def resident_chunk(nocc, nvir, seed, dtype, tile, tiles, act, df,
@@ -3539,6 +3757,9 @@ def main():
         rel_bf16_vs_f32=f"{abs(e_bf16 - e_f32) / abs(e_f32):.3e}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)),
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    say(5, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
 
     # ---- phase 6: the (T) design probes ----------------------------------
     # (a) the probes' entry points at the JAX scripts' shapes, each raising
@@ -3739,6 +3960,9 @@ def main():
         empty_kernel_ms_cold=f"{empty_cold:.5f}",
         clocks_after=json.dumps(nvidia_smi(CLOCKS)))
 
+    say(6, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+
     # ---- phase 7: Lambda, certification, RDMs, device DIIS ---------------
     # (a) H2O/cc-pVDZ in fp64, phase 2's CCSD tightened by a warm restart
     # so the RDM energy identity is not limited by the amplitudes' residual
@@ -3892,10 +4116,11 @@ def main():
     vec = hdiis.update(vec)
     t_upd = time.perf_counter() - t0
     nd = len(hdiis._errs)
+    # the Gram work of an update: the newest error's dots (lib/diis keeps
+    # the rest from the update before)
     t0 = time.perf_counter()
-    for i in range(nd):
-        for j in range(i + 1):
-            np.dot(hdiis._errs[i], hdiis._errs[j])
+    for j in range(nd):
+        np.dot(hdiis._errs[-1], hdiis._errs[j])
     t_gram = time.perf_counter() - t0
     t_h2d = seconds(torch, lambda: torch.from_numpy(vec).to(dev))[1]
     del vec, hdiis
@@ -3910,7 +4135,7 @@ def main():
     say(7, "host ring cycle split", gb=f"{4 * n_ring / 1e9:.3f}",
         d2h_sec=f"{t_d2h:.3f}", concat_sec=f"{t_cat:.3f}",
         update_sec=f"{t_upd:.3f}", ring_vectors=nd,
-        gram_sec=f"{t_gram:.3f}", gram_dots=nd * (nd + 1) // 2,
+        gram_sec=f"{t_gram:.3f}", gram_dots=nd,
         h2d_sec=f"{t_h2d:.3f}",
         sum_sec=f"{t_d2h + t_cat + t_upd + t_h2d:.3f}")
 
@@ -3936,6 +4161,8 @@ def main():
     say(7, "ccsd scanner ok", e_warm=repr(e_warm),
         d_cold=f"{e_warm - e_cold:.2e}", atol=ATOL_SCAN,
         kernel_launches=tc.launch_count - n_tc + tr.launch_count - n_tr)
+
+    say(7, "done", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
     # ---- phase 8: MP2 and MP-CC -----------------------------------------
     t0 = time.perf_counter()
@@ -4028,6 +4255,23 @@ def main():
         shutil.rmtree(w8_scratch, ignore_errors=True)
         torch.cuda.empty_cache()
 
+    # ---- phase 17: the benzene/cc-pVTZ campaign -------------------------
+    # its checkpoint goes to a directory of its own under .campaign/,
+    # removed after the phase
+    bz_scratch = tempfile.mkdtemp(prefix="chip_smoke_benzene_",
+                                  dir=os.path.join(ROOT, ".campaign"))
+    try:
+        t0 = time.perf_counter()
+        bz_launches = benzene_phase(torch, smi, dev, bz_scratch)
+        comb_launches += bz_launches
+        say(17, "done", launches_in_record=bz_launches,
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        shutil.rmtree(bz_scratch, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    print(f"[chip_smoke] phases 0-17 done seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
     probe_src = "pyscf_mpcc_tpu_torch/ops/csrc/triples_probe.cu"
     probe_rows = [
         ("dispatch", probe_src, "tools/triples_probe_v6.py:53"),

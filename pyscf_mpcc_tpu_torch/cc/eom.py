@@ -8,7 +8,9 @@ the same residual the ground-state solver iterates (``lambda_ad.residual``,
 ``residual_u``): no hand-derived H-bar intermediates.  The Davidson solver
 (lib/linalg, a host copy of the JAX package's) keeps its vectors on the
 host in fp64; each matvec moves one vector to the device in the working
-dtype and its sigma back.
+dtype and its sigma back.  ``kernel_ee``, whose vectors are the size of
+t2 (30 MB at benzene/cc-pVDZ), runs lib/device_davidson instead: the
+same algorithm with its fp64 subspace beside the amplitudes.
 
 IP/EA sectors (restricted and unrestricted) are EE spaces of a system
 augmented by one zero-interaction orbital, so the same Jacobian sigma
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from pyscf_mpcc_tpu_torch import config
 from pyscf_mpcc_tpu_torch.cc import lambda_ad
 from pyscf_mpcc_tpu_torch.convert import to_numpy
+from pyscf_mpcc_tpu_torch.lib import device_davidson
 from pyscf_mpcc_tpu_torch.lib.linalg import davidson
 
 
@@ -94,17 +97,19 @@ def kernel_ee(t1, t2, eris, nroots=3, tol=1e-7, max_cycle=100, verbose=0,
     t2s = t2.shape
 
     def matvec(x):
-        r1 = _to_dev(x[:n1].reshape(nocc, nvir), t1)
-        r2 = _to_dev(x[n1:].reshape(t2s), t2)
+        r1 = x[:n1].reshape(nocc, nvir).to(t1.dtype)
+        r2 = x[n1:].reshape(t2s).to(t2.dtype)
         r2 = 0.5 * (r2 + r2.permute(1, 0, 3, 2))
         s1, s2 = ee_sigma(t1, t2, eris, r1, r2, ntile=ntile)
         s2 = 0.5 * (s2 + s2.permute(1, 0, 3, 2))
-        return _to_host(s1, s2)
+        return torch.cat([s1.reshape(-1), s2.reshape(-1)]).double()
 
     # initial guesses: lowest orbital-energy-difference singles
     x0 = _guesses(diag, n1, nroots)
-    return davidson(matvec, x0, diag, nroots=nroots, tol=tol,
-                    max_cycle=max_cycle, verbose=verbose, pick="follow")
+    conv, e, vecs = device_davidson.davidson(
+        matvec, x0, torch.as_tensor(diag, device=t2.device), nroots=nroots,
+        tol=tol, max_cycle=max_cycle, verbose=verbose, pick="follow")
+    return conv, e, [None if v is None else to_numpy(v) for v in vecs]
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ eom_rccsd.py run on integrals injected from the JAX package, CCSD at
 conv_tol 1e-8) are copied below.  Progress goes to stderr; stdout gets
 one JSON line: per sector the roots in eV, their largest deviation from
 the pins, Davidson cycles and matvecs, seconds per sigma (device work and
-the vector's copies), per sector and the host Davidson's share of it, the
-peak device memory; and the host RHF and ERI times apart from the device
+the vector's copies), per sector and the Davidson's share of it (the
+card's for EE, lib/device_davidson; the host's for IP and EA), the peak
+device memory; and the host RHF and ERI times apart from the device
 integral transform and CCSD.
 """
 
@@ -116,7 +117,7 @@ def sector(name, kern, nroots, t1, t2, er, dev):
         converged=bool(np.all(conv)),
         cycles=log.getvalue().count("davidson cycle"), matvecs=clock.n,
         s_per_sigma=clock.sec / max(clock.n, 1), sec=sec,
-        host_davidson_sec=sec - clock.sec,
+        davidson_sec=sec - clock.sec,
         peak_gib=(round(torch.cuda.max_memory_allocated(dev) / 2**30, 3)
                   if dev.type == "cuda" else None))
 
@@ -124,8 +125,7 @@ def sector(name, kern, nroots, t1, t2, er, dev):
 def run(device=None, dtype=None, ee_roots=4):
     """RHF -> incore integrals -> RCCSD -> EE/IP/EA on ``device``
     (default the card); returns the readings.  ee_roots: the lowest EE
-    roots to solve, each held to its pin (the host Davidson's cost grows
-    with their number)."""
+    roots to solve, each held to its pin."""
     dev, dtype = _dev.resolve(device, dtype)
     out = dict(molecule="benzene/cc-pvdz (pin geometry)", dtype=str(dtype))
     t0 = time.perf_counter()

@@ -32,6 +32,7 @@ import torch
 
 from pyscf_mpcc_tpu_torch import gto
 from pyscf_mpcc_tpu_torch.cc.driver import CCSD
+from pyscf_mpcc_tpu_torch.examples import campaign as cp
 from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
 from pyscf_mpcc_tpu_torch.lib import device as _dev
 from pyscf_mpcc_tpu_torch.scf import RHF
@@ -57,12 +58,12 @@ def run(small=True, device=None, dtype=None):
         return f"[{time.perf_counter() - t_all:7.1f}s]"
 
     def stage(name, fn):
-        w8._reset_peak(dev)
+        cp.reset_peak(dev)
         t0 = time.perf_counter()
         r = fn()
-        w8._sync(dev)
+        cp.sync(dev)
         out[f"{name}_s"] = time.perf_counter() - t0
-        out[f"peak_{name}_gib"] = w8._peak_gib(dev)
+        out[f"peak_{name}_gib"] = cp.peak_gib(dev)
         return r
 
     mol = gto.M(atom=geom, basis=basis)
@@ -88,12 +89,12 @@ def run(small=True, device=None, dtype=None):
     out.update(nocc=cc.nocc, nvir=cc.nmo - cc.nocc,
                ccsd_ntile=cc.ladder_ntile(er))
     cc.verbose = 5             # the cycles, to stderr through the tee
-    log = w8._Tee()
+    log = cp.Tee()
     with contextlib.redirect_stdout(log):
         e, _, _ = stage("ccsd", cc.kernel)
     cyc = log.lines("E_corr(RCCSD)")
     out.update(e_corr=e, ccsd_converged=bool(cc.converged),
-               ccsd_cycles=len(cyc), ccsd_normt=w8._last_norm(cyc, "|dt|"),
+               ccsd_cycles=len(cyc), ccsd_normt=cp.last_norm(cyc, "|dt|"),
                conv_tol=cc.conv_tol, conv_tol_normt=cc.conv_tol_normt,
                max_cycle=cc.max_cycle)
     out["ccsd_s_per_cycle"] = out["ccsd_s"] / max(len(cyc), 1)

@@ -49,6 +49,7 @@ import torch
 
 from pyscf_mpcc_tpu_torch.cc import ccsd_t
 from pyscf_mpcc_tpu_torch.cc import eris as eris_mod
+from pyscf_mpcc_tpu_torch.examples import campaign as cp
 from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
 from pyscf_mpcc_tpu_torch.lib import device as _dev
 from pyscf_mpcc_tpu_torch.lib import memory as _mem
@@ -101,7 +102,7 @@ def run_one(ck, engine, precision, dot, tile, dev, dtype, chunk=1):
     """One spec on the loaded checkpoint ck: the integrals built in
     dtype on dev, then ccsd_t.kernel over every tile.  Returns the
     W8TRIPLES dict (without the error handling of run)."""
-    w8._reset_peak(dev)
+    cp.reset_peak(dev)
     nocc, nvir, frozen = ck["nocc"], ck["nvir"], ck["frozen"]
     t0 = time.perf_counter()
     er = eris_mod.make_eris_df(ck["B"], ck["mo_full"][:, frozen:],
@@ -109,7 +110,7 @@ def run_one(ck, engine, precision, dot, tile, dev, dtype, chunk=1):
                                keep_ovvv=False, device=dev)
     t1 = torch.as_tensor(ck["t1"]).to(dev, dtype)
     t2 = torch.as_tensor(ck["t2"]).to(dev, dtype)
-    w8._sync(dev)
+    cp.sync(dev)
     eris_s = time.perf_counter() - t0
     mode = tc.w1_mode(dot)
     resolved = (ccsd_t.auto_engine(dev.type, nocc, dtype, mode)
@@ -117,7 +118,7 @@ def run_one(ck, engine, precision, dot, tile, dev, dtype, chunk=1):
     t0 = time.perf_counter()
     e_t = ccsd_t.kernel(t1, t2, er, tile=tile, engine=engine,
                         dot_precision=dot, chunk=chunk)
-    w8._sync(dev)
+    cp.sync(dev)
     wall = time.perf_counter() - t0
     n_tiles = len(ccsd_t._tile_triples(-(-nvir // tile)))
     persistent, live = _mem.triples_tile_bytes(
@@ -129,7 +130,7 @@ def run_one(ck, engine, precision, dot, tile, dev, dtype, chunk=1):
                 else "cpu"),
         engine_resolved=resolved, w1_mode=mode, dtype=str(dtype),
         n_tiles=n_tiles, ms_per_tile=wall / n_tiles * 1e3, eris_s=eris_s,
-        peak_gib=w8._peak_gib(dev), plan_gib=(persistent + live) / 2**30)
+        peak_gib=cp.peak_gib(dev), plan_gib=(persistent + live) / 2**30)
 
 
 def run(specs="fused:dot-high", tile=8, device=None, dtype=None,

@@ -24,6 +24,7 @@ class DIIS:
         self._xs = []
         self._errs = []
         self._last_x = None
+        self._gram = None     # the Gram matrix of _errs, kept across updates
 
     def update(self, x, xerr=None):
         x = np.asarray(x).ravel()
@@ -37,23 +38,48 @@ class DIIS:
             self._last_x = x.copy()
         self._xs.append(x.copy())
         self._errs.append(err)
-        if len(self._xs) > self.space:
+        popped = len(self._xs) > self.space
+        if popped:
             self._xs.pop(0)
             self._errs.pop(0)
+        B = self._update_gram(popped)
         nd = len(self._xs)
         if nd < self.min_space:
             return x
-        B = np.empty((nd, nd))
-        for i in range(nd):
-            for j in range(i + 1):
-                B[i, j] = B[j, i] = np.dot(self._errs[i], self._errs[j])
         c = solve_diis_b(B)
+        # sum_i c_i x_i through one scratch product, the same products and
+        # sums as fresh temporaries, without allocating one a term
         xnew = np.zeros_like(x)
+        tmp = np.empty_like(x, dtype=np.multiply(c[0], x[:1]).dtype)
         for ci, xi in zip(c, self._xs):
-            xnew += ci * xi
+            np.multiply(ci, xi, out=tmp)
+            xnew += tmp
         if xerr is None:
             self._last_x = xnew.copy()
         return xnew
+
+    def _update_gram(self, popped):
+        """B[i, j] = err_i . err_j for the stored errors, the last one
+        appended and, if ``popped``, the oldest dropped.  Only the new
+        error's dots are taken; the rest are the last update's, the same
+        dots of the same vectors, so B is what a full rebuild gives, bit
+        for bit.  A Gram that does not match the stored errors (after
+        restore) is rebuilt."""
+        nd = len(self._errs)
+        g = self._gram
+        if g is None or g.shape[0] != nd - 1 + popped:
+            B = np.empty((nd, nd))
+            for i in range(nd):
+                for j in range(i + 1):
+                    B[i, j] = B[j, i] = np.dot(self._errs[i], self._errs[j])
+        else:
+            B = np.empty((nd, nd))
+            B[:-1, :-1] = g[1:, 1:] if popped else g
+            i = nd - 1
+            for j in range(nd):
+                B[i, j] = B[j, i] = np.dot(self._errs[i], self._errs[j])
+        self._gram = B
+        return B
 
     # ------------------------------------------------------ spill/restore
     def dump(self, path):

@@ -7,7 +7,10 @@ deterministic, and adequate for the fragment workflows.  Populations are
 Lowdin (S^1/2-orthogonalized) charges, close to the reference's default
 'meta-lowdin' for valence-dominated fragments.
 
-A host copy of the JAX package's lo/pm.py (NumPy and the port's gto).
+A host copy of the JAX package's lo/pm.py (NumPy and the port's gto);
+``pm_localize`` reads each atom's rows as slices of the transposed
+coefficients, not boolean masks: the same dots and rotations, bit for
+bit, in about half the time.
 """
 
 from __future__ import annotations
@@ -58,35 +61,46 @@ def pm_localize(mol, mo_coeff, S=None, max_sweeps=200, conv_tol=1e-10):
         ao_atom[p:p + n] = sh.atom_id
         p += n
     masks = [ao_atom == A for A in range(natm)]
+    # each atom's AOs as a slice where they are contiguous (else their
+    # indices): the rows of Ct = C.T below are then views, and each dot
+    # is the dot of the same contiguous values as C[mask, i] gives
+    sel = []
+    for m in masks:
+        idx = np.flatnonzero(m)
+        contiguous = idx.size and idx[-1] - idx[0] + 1 == idx.size
+        sel.append(slice(idx[0], idx[-1] + 1) if contiguous else idx)
+    Ct = np.ascontiguousarray(C.T)
     U = np.eye(nmo)
 
-    def objective(C):
+    def objective(Ct):
+        C = Ct.T
         return sum(((C[m] ** 2).sum(axis=0) ** 2).sum() for m in masks)
 
-    last = objective(C)
+    last = objective(Ct)
     for sweep in range(max_sweeps):
         for i in range(nmo):
             for j in range(i + 1, nmo):
                 # optimal 2x2 rotation (Edmiston-Ruedenberg style closed form)
                 Ast = 0.0
                 Bst = 0.0
-                for m in masks:
-                    qii = C[m, i] @ C[m, i]
-                    qjj = C[m, j] @ C[m, j]
-                    qij = C[m, i] @ C[m, j]
+                for a in sel:
+                    xi, xj = Ct[i, a], Ct[j, a]
+                    qii = xi @ xi
+                    qjj = xj @ xj
+                    qij = xi @ xj
                     Ast += qij ** 2 - 0.25 * (qii - qjj) ** 2
                     Bst += qij * (qii - qjj)
                 if abs(Ast) < 1e-14 and abs(Bst) < 1e-14:
                     continue
                 gamma = 0.25 * np.arctan2(Bst, -Ast)
                 c, s = np.cos(gamma), np.sin(gamma)
-                ci = c * C[:, i] + s * C[:, j]
-                cj = -s * C[:, i] + c * C[:, j]
-                C[:, i], C[:, j] = ci, cj
+                ci = c * Ct[i] + s * Ct[j]
+                cj = -s * Ct[i] + c * Ct[j]
+                Ct[i], Ct[j] = ci, cj
                 ui = c * U[:, i] + s * U[:, j]
                 uj = -s * U[:, i] + c * U[:, j]
                 U[:, i], U[:, j] = ui, uj
-        cur = objective(C)
+        cur = objective(Ct)
         if abs(cur - last) < conv_tol:
             break
         last = cur

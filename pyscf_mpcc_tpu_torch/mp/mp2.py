@@ -19,10 +19,14 @@ einsum = torch.einsum
 
 
 def energy_from_t2(t2, ovov):
-    """E_corr from spatial t2[ijab] and chemists (ia|jb)."""
-    ed = 2.0 * einsum("ijab,iajb->", t2, ovov)
-    ex = -einsum("ijab,ibja->", t2, ovov)
-    return ed + ex
+    """E_corr from spatial t2[ijab] and chemists (ia|jb), as a 0-d fp64
+    tensor: the products are formed in the working dtype and summed in
+    fp64 (an fp32 sum of benzene/cc-pVTZ's 26M terms drifts by up to 1e-6
+    Ha on the card and 2e-5 on a CPU), as the (T) sums its tiles."""
+    v = ovov.permute(0, 2, 1, 3)            # v[i,j,a,b] = (ia|jb)
+    ed = (t2 * v).sum(dtype=torch.float64)
+    ex = (t2 * v.transpose(2, 3)).sum(dtype=torch.float64)
+    return 2.0 * ed - ex
 
 
 def _denom(eo_i, eo_j, ev_a, ev_b):

@@ -94,6 +94,51 @@ def test_diis_extrapolation_matches():
         np.testing.assert_allclose(a, b, rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("with_err", [True, False])
+def test_diis_updates_equal_the_jax_copy_bit_for_bit(dtype, with_err,
+                                                     tmp_path):
+    """The port's DIIS keeps its Gram matrix across updates (the new
+    error's dots only) and sums through one scratch product: the same
+    dots and sums as the JAX package's, so every update equals it bit for
+    bit, across the ring's turnover and a dump/restore (which rebuilds
+    the Gram)."""
+    rng = np.random.default_rng(4)
+    d, jd = diis.DIIS(space=4), jdiis.DIIS(space=4)
+    x = rng.standard_normal(3000).astype(dtype)
+    for k in range(12):
+        if k == 7:
+            d = diis.DIIS.restore(d.dump(str(tmp_path / "ring.npz")))
+        x = (0.6 * x + 0.1 * rng.standard_normal(3000)).astype(dtype)
+        err = ((rng.standard_normal(3000) * 1e-2).astype(dtype)
+               if with_err else None)
+        a = d.update(x, xerr=err)
+        b = jd.update(x, xerr=err)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+        x = a
+
+
+@pytest.mark.parametrize("spin", [False, True])
+def test_exact_jk_equals_the_einsums(spin):
+    """scf/hf._JKIncore's GEMMs against the einsums of the JAX package's
+    J/K code on the same integrals, for one density and a spin pair."""
+    from pyscf_mpcc_tpu_torch.scf.hf import _JKIncore
+    mol = gto.M(atom="O 0 0 0; H 0 0.76 -0.59; H 0 -0.76 -0.59",
+                basis="6-31g")
+    jk = _JKIncore(mol)
+    rng = np.random.default_rng(1)
+    n = mol.nao
+    dm = rng.standard_normal((2, n, n) if spin else (n, n))
+    dm = dm + np.swapaxes(dm, -1, -2)
+    j, k = jk.get_jk(dm)
+    np.testing.assert_allclose(
+        j, np.einsum("pqrs,...rs->...pq", jk.eri, dm), rtol=0, atol=TOL)
+    np.testing.assert_allclose(
+        k, np.einsum("prqs,...rs->...pq", jk.eri, dm), rtol=0, atol=TOL)
+    assert j.shape == k.shape == dm.shape
+
+
 def _same(a, b):
     if isinstance(a, dict):
         assert isinstance(b, dict) and a.keys() == b.keys()
@@ -181,6 +226,28 @@ def test_pm_localization_matches(mols):
     np.testing.assert_allclose(u.T @ u, np.eye(5), atol=1e-10)
     np.testing.assert_allclose(pm.PipekMezey(mol, C).kernel(), c_loc,
                                rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("block", ["occupied", "virtual"])
+def test_pm_localization_equals_the_jax_copy_bit_for_bit(block):
+    """pm_localize reads each atom's rows as slices of the transposed
+    coefficients: the same dots and rotations as the JAX package's
+    boolean masks, so the orbitals and the rotation are equal bit for bit
+    (a water dimer's RHF blocks, 10 and 16 orbitals over 26 AOs)."""
+    from pyscf_mpcc_tpu_torch.scf import RHF
+    atom = ("O 0 0 0; H 0.757 0.587 0; H -0.757 0.587 0; "
+            "O 0 0 2.98; H 0.757 0.587 2.98; H -0.757 0.587 2.98")
+    mol = gto.M(atom=atom, basis="6-31g")
+    mf = RHF(mol)
+    mf.conv_tol = 1e-9
+    mf.kernel()
+    nocc = mol.nelectron // 2
+    C = np.asarray(mf.mo_coeff)
+    C = C[:, :nocc] if block == "occupied" else C[:, nocc:]
+    c_loc, u = pm.pm_localize(mol, C.copy(), S=mf.S)
+    jc_loc, ju = jpm.pm_localize(mol, C.copy(), S=mf.S)
+    np.testing.assert_array_equal(c_loc, jc_loc)
+    np.testing.assert_array_equal(u, ju)
 
 
 @pytest.mark.parametrize("patterns", [["O p"], ["O s", "H s"]])

@@ -50,7 +50,8 @@ LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
                 "cc.stream_ladder", "parallel.mesh", "parallel.distributed",
                 "parallel.ladder_shard", "parallel.ccsd_shard",
                 "examples.w8_parity_certify", "examples.w8_triples",
-                "examples.w8_ccsd_pipeline")
+                "examples.w8_ccsd_pipeline", "examples.benzene",
+                "examples.campaign", "lib.device_davidson")
 # the JAX package's example scripts (the repo's examples/): the port's
 # twins carry their own copies of what they take from them
 ROOT_EXAMPLES = {"examples"} | {
@@ -255,6 +256,7 @@ def test_eom_stream_entry_points_default_to_cuda(name):
 
 
 def _campaign_entry_points():
+    from pyscf_mpcc_tpu_torch.examples import benzene as bz
     from pyscf_mpcc_tpu_torch.examples import w8_ccsd_pipeline as pipe
     from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
     from pyscf_mpcc_tpu_torch.examples import w8_triples as w8t
@@ -268,17 +270,21 @@ def _campaign_entry_points():
         "w8_triples_main": lambda: w8t.main([]),
         "w8_pipeline_run": lambda: pipe.run(),
         "w8_pipeline_main": lambda: pipe.main(["--full"]),
+        "benzene_run": lambda: bz.run(),
+        "benzene_main": lambda: bz.main(["--certify", "--triples"]),
+        "benzene_stage64": lambda: bz.main(["--stage64"]),
+        "benzene_scf_only": lambda: bz.main(["--scf-only"]),
     }
 
 
 @pytest.mark.parametrize("name", list(_campaign_entry_points()))
 def test_campaign_entry_points_default_to_cuda(name):
-    """The (H2O)8 campaigns' entry points (the certified CCSD, the full
-    (T), the CCSD(T) pipeline) resolve a missing device to the card
-    (lib/device.resolve) and raise where there is none, before any SCF
-    or checkpoint work."""
+    """The campaigns' entry points ((H2O)8: the certified CCSD, the full
+    (T), the CCSD(T) pipeline; benzene end to end) resolve a missing
+    device to the card (lib/device.resolve) and raise where there is
+    none, before any SCF or checkpoint work."""
     if torch.cuda.is_available():
-        pytest.skip("the card is present; chip_smoke.py phases 15-16 run "
+        pytest.skip("the card is present; chip_smoke.py phases 15-17 run "
                     "these")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _campaign_entry_points()[name]()
