@@ -136,9 +136,10 @@ def build_mf(geom, basis, auxbasis, jk_device=None):
     """The campaign's DF-RHF, converged (conv_tol 1e-10).  J and K
     contract in fp64 on ``jk_device`` (a torch.device), or on the host
     when it is None.  Returns (the SCF checkpoint dict: mo_full, fock_ao,
-    B, e_scf, nelectron; readings); on a device the readings hold one J/K
-    call timed there and on the host at the converged density, and their
-    largest difference."""
+    B, e_scf, nelectron; readings, with the overlap's smallest
+    eigenvalue, s_min); on a device the readings hold one J/K call timed
+    there and on the host at the converged density, and their largest
+    difference."""
     tee = Tee()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
@@ -151,7 +152,9 @@ def build_mf(geom, basis, auxbasis, jk_device=None):
                df_s=time.perf_counter() - t0,
                jk="host fp64" if jk_device is None else
                f"{torch.device(jk_device).type} fp64")
-    log(f"DF built: nao={mol.nao} naux={out['naux']} ({out['df_s']:.1f} s)")
+    out["s_min"] = float(np.linalg.eigvalsh(mf.get_ovlp())[0])
+    log(f"DF built: nao={mol.nao} naux={out['naux']} ({out['df_s']:.1f} s); "
+        f"smallest overlap eigenvalue {out['s_min']:.3e}")
     if jk_device is not None:
         mf._jk = _JKDF(B, device=jk_device, dtype=torch.float64)
     t0 = time.perf_counter()
@@ -182,17 +185,19 @@ def build_mf(geom, basis, auxbasis, jk_device=None):
     return scf, out
 
 
-def make_eris(scf, frozen, dtype, dev):
+def make_eris(scf, frozen, dtype, dev, stream_vv=False):
     """The ovvv-free DF integrals of the SCF checkpoint dict with
-    ``frozen`` core orbitals, in ``dtype`` on ``dev``.  Returns (eris,
-    readings: nocc, nvir, naux, eris_s)."""
+    ``frozen`` core orbitals, in ``dtype`` on ``dev``; with ``stream_vv``
+    Lvv stays in a host store (``Lvv_stream``, cc/stream_ladder).
+    Returns (eris, readings: nocc, nvir, naux, eris_s)."""
     nocc = int(scf["nelectron"]) // 2 - frozen
     t0 = time.perf_counter()
     er = eris_mod.make_eris_df(scf["B"], scf["mo_full"][:, frozen:],
                                scf["fock_ao"], nocc, dtype=dtype,
-                               keep_ovvv=False, device=dev)
+                               keep_ovvv=False, stream_vv=stream_vv,
+                               device=dev)
     sync(dev)
-    naux, nvir = er.Lvv.shape[:2]
+    naux, _, nvir = er.Lov.shape
     return er, dict(nocc=nocc, nvir=nvir, naux=naux,
                     eris_s=time.perf_counter() - t0)
 
@@ -247,15 +252,15 @@ def amplitudes(t1, t2, l1, l2, e32):
     return amps
 
 
-def certify(scf, amps, frozen, device=None):
+def certify(scf, amps, frozen, device=None, stream_vv=False):
     """The certified correlation energy: the DF integrals of scf rebuilt in
-    fp64 on ``device`` and one fp64 lagrangian_energy of the upcast
-    amplitudes and multipliers in amps (the amplitude checkpoint dict).
-    Returns (e_lagr, readings)."""
+    fp64 on ``device`` (Lvv in a host store with ``stream_vv``) and one
+    fp64 lagrangian_energy of the upcast amplitudes and multipliers in
+    amps (the amplitude checkpoint dict).  Returns (e_lagr, readings)."""
     dev, f64 = _dev.resolve(device, torch.float64)
     reset_peak(dev)
-    er, r = make_eris(scf, frozen, f64, dev)
-    out = dict(eris64_s=r["eris_s"])
+    er, r = make_eris(scf, frozen, f64, dev, stream_vv)
+    out = dict(eris64_s=r["eris_s"], stream_vv64=stream_vv)
     b = budget(dev)
     out["ntile64"] = nt = (1 if b is None else _mem.plan_ladder_ntile(
         r["nocc"], r["nvir"], r["naux"], dtype="float64", budget=b))

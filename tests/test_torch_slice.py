@@ -51,7 +51,10 @@ LAMBDA_SLICE = ("cc.lambda_ad", "lib.device_diis", "lib.chkfile",
                 "parallel.ladder_shard", "parallel.ccsd_shard",
                 "examples.w8_parity_certify", "examples.w8_triples",
                 "examples.w8_ccsd_pipeline", "examples.benzene",
-                "examples.campaign", "lib.device_davidson")
+                "examples.campaign", "lib.device_davidson",
+                "examples.w8aug_stream_certify",
+                "examples.properties_showcase", "examples.umpcc_o2",
+                "tools.w8aug_fp64_ccsd")
 # the JAX package's example scripts (the repo's examples/): the port's
 # twins carry their own copies of what they take from them
 ROOT_EXAMPLES = {"examples"} | {
@@ -257,9 +260,13 @@ def test_eom_stream_entry_points_default_to_cuda(name):
 
 def _campaign_entry_points():
     from pyscf_mpcc_tpu_torch.examples import benzene as bz
+    from pyscf_mpcc_tpu_torch.examples import properties_showcase as ps
+    from pyscf_mpcc_tpu_torch.examples import umpcc_o2
     from pyscf_mpcc_tpu_torch.examples import w8_ccsd_pipeline as pipe
     from pyscf_mpcc_tpu_torch.examples import w8_parity_certify as w8
     from pyscf_mpcc_tpu_torch.examples import w8_triples as w8t
+    from pyscf_mpcc_tpu_torch.examples import w8aug_stream_certify as w8aug
+    from pyscf_mpcc_tpu_torch.tools import w8aug_fp64_ccsd
     scf = {"nelectron": 2}
     return {
         "w8_run": lambda: w8.run(),
@@ -274,17 +281,32 @@ def _campaign_entry_points():
         "benzene_main": lambda: bz.main(["--certify", "--triples"]),
         "benzene_stage64": lambda: bz.main(["--stage64"]),
         "benzene_scf_only": lambda: bz.main(["--scf-only"]),
+        "w8aug_run": lambda: w8aug.run(),
+        "w8aug_main": lambda: w8aug.main([]),
+        "w8aug_stage32": lambda: w8aug.main(["--stage32"]),
+        "w8aug_stage64": lambda: w8aug.main(["--stage64"]),
+        "w8aug_scf_stage": lambda: w8aug.scf_stage(),
+        "w8aug_stage_fp32": lambda: w8aug.stage_fp32(scf, 0),
+        "w8aug_stage_fp64": lambda: w8aug.stage_fp64(scf, {}, 0),
+        "w8aug_fp64_ccsd": lambda: w8aug_fp64_ccsd.main([]),
+        "properties_run": lambda: ps.run(),
+        "properties_main": lambda: ps.main([]),
+        "properties_dfmp2_stage": lambda: ps.dfmp2_stage(),
+        "properties_ccsd_stage": lambda: ps.ccsd_stage(),
+        "umpcc_o2_run": lambda: umpcc_o2.run(),
+        "umpcc_o2_main": lambda: umpcc_o2.main([]),
     }
 
 
 @pytest.mark.parametrize("name", list(_campaign_entry_points()))
 def test_campaign_entry_points_default_to_cuda(name):
     """The campaigns' entry points ((H2O)8: the certified CCSD, the full
-    (T), the CCSD(T) pipeline; benzene end to end) resolve a missing
-    device to the card (lib/device.resolve) and raise where there is
-    none, before any SCF or checkpoint work."""
+    (T), the CCSD(T) pipeline; benzene end to end; (H2O)8/aug-cc-pVTZ
+    streamed and certified; the property showcase and triplet-O2 UMPCC)
+    resolve a missing device to the card (lib/device.resolve) and raise
+    where there is none, before any SCF or checkpoint work."""
     if torch.cuda.is_available():
-        pytest.skip("the card is present; chip_smoke.py phases 15-17 run "
+        pytest.skip("the card is present; chip_smoke.py phases 15-19 run "
                     "these")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _campaign_entry_points()[name]()
