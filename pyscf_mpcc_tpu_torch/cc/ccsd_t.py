@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from pyscf_mpcc_tpu_torch.ops import triples_combine as tc
 from pyscf_mpcc_tpu_torch.ops import triples_resident as tr
+from pyscf_mpcc_tpu_torch.utils.profiling import count, span
 
 PERMS = tc.PERMS
 
@@ -479,37 +480,47 @@ def kernel(t1, t2, eris, tile=8, dtype=None, tiles_per_call=2048,
         tile = _mem.plan_triples_tile(nocc, nvir, naux, dtype,
                                       device=t2.device, engine=engine,
                                       dot_precision=dot_precision)
-    big = _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle, vfac,
-                   engine, rmode)
-    trips = mesh_block(_tile_triples(big["nvp"] // tile), mesh)
-    ntrips = trips.shape[0]
-    e_tiles = torch.empty(ntrips, dtype=torch.float64, device=t2.device)
-    if engine == "xla":
-        tile_energy = make_tile_energy(big, mode, rmode)
-        for n in range(ntrips):
-            e_tiles[n] = tile_energy(trips[n])
-        return 2.0 * float(mesh_total(e_tiles, mesh))
+    with span("triples.energy"):
+        big = _prepare(t1, t2, eris, tile, dtype, act_hole, act_particle,
+                       vfac, engine, rmode)
+        trips = mesh_block(_tile_triples(big["nvp"] // tile), mesh)
+        ntrips = trips.shape[0]
+        count("triples.tiles", ntrips)
+        e_tiles = torch.empty(ntrips, dtype=torch.float64, device=t2.device)
+        if engine == "xla":
+            tile_energy = make_tile_energy(big, mode, rmode)
+            for n in range(ntrips):
+                e_tiles[n] = tile_energy(trips[n])
+            return 2.0 * float(mesh_total(e_tiles, mesh))
 
-    eijk, actocc3 = fused_shared(big)
-    has_act = "act_occ" in big
-    K = max(1, int(chunk))
-    if engine == "resident":
-        prep = make_prep_resident(big)
+        # per chunk: the host's prep (triples.prep), then the kernel
+        # (triples.launch, on the device)
+        eijk, actocc3 = fused_shared(big)
+        has_act = "act_occ" in big
+        K = max(1, int(chunk))
+        if engine == "resident":
+            prep = make_prep_resident(big)
+            for n0 in range(0, ntrips, K):
+                with span("triples.prep"):
+                    out = stack_prep_resident(
+                        [prep(abc) for abc in trips[n0:n0 + K]])
+                kw = {}
+                if has_act:
+                    kw = dict(act3=out[9], actocc=actocc3, act_mode=mode)
+                with span("triples.launch", device=True):
+                    e_tiles[n0:n0 + len(out[0])] = \
+                        tr.tile_energy_resident_chunk(
+                            *out[:7], eijk, *out[7:9], mode=rmode, **kw)
+            return 2.0 * float(mesh_total(e_tiles, mesh))
+
+        prep = make_prep_fused(big)
         for n0 in range(0, ntrips, K):
-            out = stack_prep_resident([prep(abc) for abc in trips[n0:n0 + K]])
+            with span("triples.prep"):
+                out = stack_prep([prep(abc) for abc in trips[n0:n0 + K]])
             kw = {}
             if has_act:
-                kw = dict(act3=out[9], actocc=actocc3, act_mode=mode)
-            e_tiles[n0:n0 + len(out[0])] = tr.tile_energy_resident_chunk(
-                *out[:7], eijk, *out[7:9], mode=rmode, **kw)
+                kw = dict(actv=out[10], actocc=actocc3, act_mode=mode)
+            with span("triples.launch", device=True):
+                e_tiles[n0:n0 + out[2].shape[0]] = tc.tile_energy_fused_chunk(
+                    *out[:8], eijk, *out[8:10], **kw)
         return 2.0 * float(mesh_total(e_tiles, mesh))
-
-    prep = make_prep_fused(big)
-    for n0 in range(0, ntrips, K):
-        out = stack_prep([prep(abc) for abc in trips[n0:n0 + K]])
-        kw = {}
-        if has_act:
-            kw = dict(actv=out[10], actocc=actocc3, act_mode=mode)
-        e_tiles[n0:n0 + out[2].shape[0]] = tc.tile_energy_fused_chunk(
-            *out[:8], eijk, *out[8:10], **kw)
-    return 2.0 * float(mesh_total(e_tiles, mesh))

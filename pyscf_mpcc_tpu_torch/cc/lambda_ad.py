@@ -33,6 +33,7 @@ import torch
 
 from pyscf_mpcc_tpu_torch.cc import rccsd
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs
+from pyscf_mpcc_tpu_torch.utils.profiling import span
 
 einsum = torch.einsum
 
@@ -79,7 +80,7 @@ def _lambda_step(l1, l2, t1, t2, eris, ntile=1, m1=None, m2=None,
     segment, so neither stays live beside them through the walk."""
     nocc = t1.shape[0]
     eia, d2 = _denominators(eris, nocc)
-    with torch.enable_grad():
+    with span("lambda.energy_grad", device=True), torch.enable_grad():
         a1, a2 = _leaves(t1, t2)
         e = rccsd.energy(a1, a2, eris)
         if e_extra is not None:
@@ -100,16 +101,19 @@ def _lambda_step(l1, l2, t1, t2, eris, ntile=1, m1=None, m2=None,
             ct = lb2 + lb2.permute(1, 0, 3, 2)
         else:
             ct = lb2
-        with torch.enable_grad():
-            a1, a2 = _leaves(t1, t2)
-            g1, g2 = torch.autograd.grad(fn(a1, a2), (a1, a2), ct,
-                                         allow_unused=True)
-        del ct
-        if g1 is not None:
-            j1 += g1
-        if g2 is not None:
-            j2 += g2
-        del g1, g2
+        # fn is seg_<piece>: the span lambda.seg.<piece>
+        with span("lambda." + fn.__name__.replace("_", ".", 1),
+                  device=True):
+            with torch.enable_grad():
+                a1, a2 = _leaves(t1, t2)
+                g1, g2 = torch.autograd.grad(fn(a1, a2), (a1, a2), ct,
+                                             allow_unused=True)
+            del ct
+            if g1 is not None:
+                j1 += g1
+            if g2 is not None:
+                j2 += g2
+            del g1, g2
     res1 = _mask(m1, j1)
     res2 = _mask(m2, 0.5 * (j2 + j2.permute(1, 0, 3, 2)))
     del j2
@@ -160,37 +164,46 @@ def kernel(t1, t2, eris: RERIs, max_cycle=50, conv_tol=1e-7, diis_space=6,
             l1, l2 = rccsd._unpack(
                 torch.from_numpy(adiis._xs[-1]).to(dev, dt), *shapes)
     converged = False
-    for it in range(max_cycle):
-        l1new, l2new, res1, res2, dl = _lambda_step(
-            l1, l2, t1, t2, eris, ntile=ntile, m1=m1, m2=m2, err_dtype=edt,
-            e_extra=e_extra)
-        del l1, l2
-        normt = float(dl)
-        if diis_backend == "device":
-            vec_new = rccsd._pack(l1new, l2new)
-            err_new = rccsd._pack(res1, res2)
-            del l1new, l2new, res1, res2   # release before the ring update
-            dstate, vec = device_diis.update_hostsolve(dstate, vec_new,
-                                                       err_new)
-            del vec_new, err_new
-            l1, l2 = rccsd._unpack(vec, *shapes)
-            del vec
-        else:
-            vec = np.concatenate([l1new.cpu().numpy().ravel(),
-                                  l2new.cpu().numpy().ravel()])
-            err = np.concatenate([res1.cpu().numpy().ravel(),
-                                  res2.cpu().numpy().ravel()])
-            del l1new, l2new, res1, res2
-            vec = diis.update(vec, xerr=err)
-            del err
-            l1, l2 = rccsd._unpack(torch.from_numpy(vec).to(dev, dt), *shapes)
-            del vec
-            if diis_file is not None:
-                diis.dump(diis_file)
-        log.info("lambda cycle %2d  |dl| = %9.3e", it, normt)
-        if normt < conv_tol:
-            converged = True
-            break
+    with span("lambda.solve"):
+        for it in range(max_cycle):
+            with span("lambda.cycle", device=True):
+                l1new, l2new, res1, res2, dl = _lambda_step(
+                    l1, l2, t1, t2, eris, ntile=ntile, m1=m1, m2=m2,
+                    err_dtype=edt, e_extra=e_extra)
+                del l1, l2
+                with span("sync.dl"):
+                    normt = float(dl)
+                with span("lambda.diis", device=True):
+                    if diis_backend == "device":
+                        vec_new = rccsd._pack(l1new, l2new)
+                        err_new = rccsd._pack(res1, res2)
+                        # release before the ring update
+                        del l1new, l2new, res1, res2
+                        dstate, vec = device_diis.update_hostsolve(
+                            dstate, vec_new, err_new)
+                        del vec_new, err_new
+                        l1, l2 = rccsd._unpack(vec, *shapes)
+                        del vec
+                    else:
+                        with span("sync.ring_to_host"):
+                            vec = np.concatenate(
+                                [l1new.cpu().numpy().ravel(),
+                                 l2new.cpu().numpy().ravel()])
+                            err = np.concatenate(
+                                [res1.cpu().numpy().ravel(),
+                                 res2.cpu().numpy().ravel()])
+                        del l1new, l2new, res1, res2
+                        vec = diis.update(vec, xerr=err)
+                        del err
+                        l1, l2 = rccsd._unpack(
+                            torch.from_numpy(vec).to(dev, dt), *shapes)
+                        del vec
+                        if diis_file is not None:
+                            diis.dump(diis_file)
+                log.info("lambda cycle %2d  |dl| = %9.3e", it, normt)
+                if normt < conv_tol:
+                    converged = True
+                    break
     return converged, l1, l2
 
 

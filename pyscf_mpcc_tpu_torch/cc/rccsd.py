@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs
+from pyscf_mpcc_tpu_torch.utils.profiling import span
 
 einsum = torch.einsum
 
@@ -565,61 +566,76 @@ def kernel(eris: RERIs, max_cycle=50, conv_tol=1e-8, conv_tol_normt=1e-6,
     if diis_err_dtype is not None and diis_backend != "device":
         raise ValueError("diis_err_dtype applies to the device DIIS ring")
     log = lg.Logger(verbose=verbose)
-    emp2, t1_0, t2_0 = init_amps(eris)
-    if t1 is None:
-        t1 = t1_0
-    if t2 is None:
-        t2 = t2_0
-    del t1_0, t2_0
-    log.info("RCCSD MP2 init E_corr = %.14f", float(emp2))
-    shapes = (t1.shape, t2.shape)
-    dev, dt = t2.device, t2.dtype
-    e_last = float(energy(t1, t2, eris))
-    converged = False
-    if diis_backend == "device":
-        from pyscf_mpcc_tpu_torch.lib import device_diis
-        dstate = device_diis.init(t1.numel() + t2.numel(), diis_space, dt,
-                                  err_dtype=diis_err_dtype, device=dev)
-        vec_old = _pack(t1, t2)
-    else:
-        diis = adiis if adiis is not None else DIIS(space=diis_space)
-        if adiis is not None and adiis._xs:
-            # resume from the last extrapolated amplitudes in the ring
-            t1, t2 = _unpack(torch.from_numpy(adiis._xs[-1]).to(dev, dt),
-                             *shapes)
-    for it in range(max_cycle):
-        t1new, t2new = update_amps(t1, t2, eris, level_shift, ntile=ntile,
-                                   variant=variant)
-        normt = float(torch.linalg.norm(t1new - t1)
-                      + torch.linalg.norm(t2new - t2))
-        if it < diis_start_cycle:
-            t1, t2 = t1new, t2new
-        elif diis_backend == "device":
-            del t1, t2
-            vec_new = _pack(t1new, t2new)
-            del t1new, t2new    # 0.74 GB each at production scale
-            dstate, vec = device_diis.update_hostsolve(dstate, vec_new,
-                                                       vec_new - vec_old)
-            del vec_new
-            vec_old = vec
-            t1, t2 = _unpack(vec, *shapes)
+    with span("ccsd.solve"):
+        emp2, t1_0, t2_0 = init_amps(eris)
+        if t1 is None:
+            t1 = t1_0
+        if t2 is None:
+            t2 = t2_0
+        del t1_0, t2_0
+        with span("sync.emp2"):
+            emp2 = float(emp2)
+        log.info("RCCSD MP2 init E_corr = %.14f", emp2)
+        shapes = (t1.shape, t2.shape)
+        dev, dt = t2.device, t2.dtype
+        with span("sync.energy0"):
+            e_last = float(energy(t1, t2, eris))
+        converged = False
+        if diis_backend == "device":
+            from pyscf_mpcc_tpu_torch.lib import device_diis
+            dstate = device_diis.init(t1.numel() + t2.numel(), diis_space,
+                                      dt, err_dtype=diis_err_dtype,
+                                      device=dev)
+            vec_old = _pack(t1, t2)
         else:
-            del t1, t2
-            vec = np.concatenate([t1new.cpu().numpy().ravel(),
-                                  t2new.cpu().numpy().ravel()])
-            del t1new, t2new    # 0.74 GB each at production scale
-            vec = diis.update(vec)
-            t1, t2 = _unpack(torch.from_numpy(vec).to(dev, dt), *shapes)
-            del vec
-            if diis_file is not None:
-                diis.dump(diis_file)
-        e = float(energy(t1, t2, eris))
-        log.info("cycle %2d  E_corr(RCCSD) = %.14f  dE = %10.3e  "
-                 "|dt| = %9.3e", it, e, e - e_last, normt)
-        if abs(e - e_last) < conv_tol and normt < conv_tol_normt:
-            converged = True
-            break
-        e_last = e
+            diis = adiis if adiis is not None else DIIS(space=diis_space)
+            if adiis is not None and adiis._xs:
+                # resume from the last extrapolated amplitudes in the ring
+                t1, t2 = _unpack(torch.from_numpy(adiis._xs[-1]).to(dev, dt),
+                                 *shapes)
+        for it in range(max_cycle):
+            with span("ccsd.cycle", device=True):
+                with span("ccsd.update_amps", device=True):
+                    t1new, t2new = update_amps(t1, t2, eris, level_shift,
+                                               ntile=ntile, variant=variant)
+                with span("sync.normt"):
+                    normt = float(torch.linalg.norm(t1new - t1)
+                                  + torch.linalg.norm(t2new - t2))
+                if it < diis_start_cycle:
+                    t1, t2 = t1new, t2new
+                elif diis_backend == "device":
+                    with span("ccsd.diis", device=True):
+                        del t1, t2
+                        vec_new = _pack(t1new, t2new)
+                        del t1new, t2new  # 0.74 GB each at production scale
+                        dstate, vec = device_diis.update_hostsolve(
+                            dstate, vec_new, vec_new - vec_old)
+                        del vec_new
+                        vec_old = vec
+                        t1, t2 = _unpack(vec, *shapes)
+                else:
+                    with span("ccsd.diis", device=True):
+                        del t1, t2
+                        with span("sync.ring_to_host"):
+                            vec = np.concatenate([t1new.cpu().numpy().ravel(),
+                                                  t2new.cpu().numpy().ravel()])
+                        del t1new, t2new  # 0.74 GB each at production scale
+                        vec = diis.update(vec)
+                        t1, t2 = _unpack(torch.from_numpy(vec).to(dev, dt),
+                                         *shapes)
+                        del vec
+                        if diis_file is not None:
+                            diis.dump(diis_file)
+                with span("ccsd.energy", device=True):
+                    e = energy(t1, t2, eris)
+                with span("sync.energy"):
+                    e = float(e)
+                log.info("cycle %2d  E_corr(RCCSD) = %.14f  dE = %10.3e  "
+                         "|dt| = %9.3e", it, e, e - e_last, normt)
+                if abs(e - e_last) < conv_tol and normt < conv_tol_normt:
+                    converged = True
+                    break
+                e_last = e
     return converged, e, t1, t2
 
 

@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pyscf_mpcc_tpu_torch.utils.profiling import span
+
 # elements of the vector per Gram chunk: 64 MB of fp32 per ring row
 _CHUNK = 1 << 24
 
@@ -109,8 +111,10 @@ def update_hostsolve(state: DIISState, x, err, mesh=None):
 
     state, G = push(state, x, err, mesh)
     space = state.xs.shape[0]
-    nd = min(int(state.count), space)
-    Gh = G.cpu().numpy().astype(np.float64)[:nd, :nd]
+    with span("sync.diis_count"):
+        nd = min(int(state.count), space)
+    with span("sync.gram"):
+        Gh = G.cpu().numpy().astype(np.float64)[:nd, :nd]
     coef = np.zeros(space)
     coef[:nd] = solve_diis_b(Gh)
     coef = torch.tensor(coef, dtype=state.xs.dtype, device=state.xs.device)

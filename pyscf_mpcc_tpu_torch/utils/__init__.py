@@ -1,2 +1,2 @@
 from pyscf_mpcc_tpu_torch.utils.profiling import (  # noqa: F401
-    report_utilization, trace)
+    count, session, span, trace)

@@ -1,5 +1,5 @@
 """The port's device DF J/K (scf/hf._JKDF(b3c, device=...)) against its
-host path and the JAX package's, and utils/profiling, on the CPU.
+host path and the JAX package's, and utils/profiling's trace, on the CPU.
 
 Input: H2O/cc-pVDZ with the port's DF factors, RHF and UHF densities.
 The device branch runs its four contractions with torch on the given
@@ -62,15 +62,27 @@ def test_scf_on_device_jk_matches_host(mol, cls):
     assert abs(mf.e_tot - ref.e_tot) < 1e-10
 
 
-def test_profiling_trace_and_utilization(tmp_path, capsys):
+def test_profiling_trace_and_utilization(tmp_path):
+    """trace() writes the profiler's rows and the program's spans and
+    counters (the "program" process: host and device rows, a counter's
+    total) into trace.json."""
+    import json
     a = torch.randn(64, 64, dtype=torch.float64)
     with utils.trace(str(tmp_path)) as prof:
-        (a @ a).sum()
-    assert (tmp_path / "trace.json").is_file()
+        with utils.span("outer"):
+            utils.count("mm", 2)
+            with utils.span("mm", device=True):
+                (a @ a).sum()
     assert any("mm" in e.key for e in prof.key_averages())
-    with utils.report_utilization(2 * 64 ** 3, label="mm", peak="h100-fp64"):
-        a @ a
-    out = capsys.readouterr().out
-    assert out.startswith("mm: ") and "of h100-fp64 peak" in out
-    assert set(utils.profiling.PEAK_TFLOPS) == {
-        "h100-fp64", "h100-fp32", "h100-tf32", "h100-bf16"}
+    spans, counts = utils.session()
+    assert [s.name for s in spans] == ["outer", "mm"]
+    assert counts == {"mm": 2}
+    doc = json.load(open(tmp_path / "trace.json"))
+    rows = {(e["name"], e["tid"]) for e in doc["traceEvents"]
+            if e.get("pid") == utils.profiling.PROGRAM_PID
+            and e["ph"] == "X"}
+    assert rows == {("outer", 0), ("mm", 0), ("mm", 1)}
+    assert [(e["name"], e["args"]) for e in doc["traceEvents"]
+            if e.get("pid") == utils.profiling.PROGRAM_PID
+            and e["ph"] == "C"] == [("mm", {"mm": 2})]
+    assert not hasattr(utils, "report_utilization")
