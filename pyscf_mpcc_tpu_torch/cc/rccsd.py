@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from pyscf_mpcc_tpu_torch.cc.eris import RERIs
-from pyscf_mpcc_tpu_torch.utils.profiling import span
+from pyscf_mpcc_tpu_torch.utils.profiling import count, span
 
 einsum = torch.einsum
 
@@ -132,7 +132,9 @@ def mirrored_sweep(tau, ntile, tsz, block):
     ntile*tsz virtuals; ``block(tau, a, b, nxt)`` gives the A >= B block
     (nxt: the first tile of the next pair, None after the last).  Each
     block is written once into the output, diagonal blocks halved, and
-    the mirrors are applied by ONE S + S.permute(1,0,3,2) at the end."""
+    the mirrors are applied by ONE S + S.permute(1,0,3,2) at the end.
+    The counter ``ladder.w_elems`` (utils/profiling) adds the W elements
+    the blocks build, tsz^2 nvp^2 a pair."""
     # exact pass-through for symmetric tau (x+x is exact, 0.5* is exact)
     tau = 0.5 * (tau + tau.permute(1, 0, 3, 2))
     nocc, nvir = tau.shape[0], tau.shape[2]
@@ -143,6 +145,7 @@ def mirrored_sweep(tau, ntile, tsz, block):
     s = torch.zeros((nocc, nocc, nvp, nvp), dtype=tau.dtype,
                     device=tau.device)
     pairs = [(a, b) for a in range(ntile) for b in range(a + 1)]
+    count("ladder.w_elems", len(pairs) * tsz * tsz * nvp * nvp)
     for k, (a, b) in enumerate(pairs):
         nxt = pairs[k + 1][0] if k + 1 < len(pairs) else None
         blk = block(tau, a, b, nxt)

@@ -103,8 +103,9 @@ def plan_ring(n, dtype, budget, fallback_space=3):
 def plan_solver(n, nocc, nvir, naux, dtype, budget, backend="device",
                 fallback_space=3, vjp=False, spill=None, **override):
     """Keyword arguments of rccsd.kernel / lambda_ad.kernel: the DIIS ring
-    (plan_ring) on ``backend`` and the ladder's tile count, planned for
-    the budget less the ring (one tile where there is no budget).
+    (plan_ring) on ``backend`` and the ladder's tile count
+    (lib/memory.plan_ladder_tiles), planned for the budget less the ring
+    (one tile where there is no budget).
     ``override`` may set space, err_dtype (device ring only) and ntile in
     place of the planned values.  The host ring spills to ``spill`` (a
     path or None) and resumes from it."""
@@ -117,7 +118,7 @@ def plan_solver(n, nocc, nvir, naux, dtype, budget, backend="device",
     else:
         edt = None
     ntile = override.get("ntile") or (
-        1 if budget is None else _mem.plan_ladder_ntile(
+        1 if budget is None else _mem.plan_ladder_tiles(
             nocc, nvir, naux, dtype=dtype, budget=budget - ring, vjp=vjp))
     spill = spill if spill and backend == "host" else None
     adiis = DIIS.restore(spill) if spill and os.path.exists(spill) else None

@@ -30,7 +30,7 @@ here the stages are plain functions run in one process:
    |E_L - E_exact| = O(|dt|^2 + |dl||dt|).
 
 Sizes (campaign.plan_solver).  The ladder tile comes from
-lib/memory.plan_ladder_ntile (vjp=True for Lambda), planned after the DIIS ring is set aside.  A ring of six
+lib/memory.plan_ladder_tiles (vjp=True for Lambda), planned after the DIIS ring is set aside.  A ring of six
 slots with errors in the working dtype is taken where it needs at most a
 quarter of the device budget; otherwise the JAX script's recipe for a
 16 GB chip, three slots (two for Lambda) with bf16 errors.  On a CPU

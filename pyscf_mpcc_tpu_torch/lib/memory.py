@@ -41,8 +41,10 @@ def _itemsize(dtype):
 
 def plan_ladder_ntile(nocc, nvir, naux, dtype="float32", budget=None,
                       vjp=False, device=None):
-    """Tile count per virtual axis for the pair-tiled DF vvvv ladder
-    (cc/rccsd._ladder_df).
+    """The memory floor of the tile count per virtual axis for the
+    pair-tiled DF vvvv ladder (cc/rccsd._ladder_df): the fewest tiles
+    that fit, the JAX package's rule.  plan_ladder_tiles picks the count
+    the solvers run at, at or above it.
 
     Working set per tile PAIR beyond the persistent tensors: the dressed
     4-index W block (tsz, nvir, tsz, nvir) plus its relayout copy for
@@ -65,6 +67,59 @@ def plan_ladder_ntile(nocc, nvir, naux, dtype="float32", budget=None,
         if tsz <= 16:
             break
     return -(-nvir // 16)
+
+
+# The tau contraction of one ladder pair is one fp32 GEMM of nocc^2 x
+# tsz^2 outputs over K = nvp^2.  On an H100 the sweep's GEMMs held 42-53
+# TFLOP/s from 2.6e7 outputs a pair down to 3.2e5, benzene/cc-pVTZ's
+# fastest sweep, at 9 tiles (tools/ladder_tile_sweep at the benzene and
+# (H2O)8 cc-pVTZ shapes).  Below it benzene's 12 tiles (1.9e5) swept 18 %
+# slower and nothing finer was timed, so the planner goes no finer.
+MIN_TAU_OUTPUTS = 300_000
+
+# the card of the sweep model: the fp32 GEMMs' FLOP/s and the bytes/s of
+# the W relayout's copy, as the same sweeps read them on an H100
+_GEMM_FLOPS, _MOVE_BYTES = 5.0e13, 9.0e11
+
+
+def ladder_sweep_model_s(nocc, nvir, naux, ntile, dtype="float32"):
+    """Modelled seconds of one pair-tiled ladder sweep (rccsd.mirrored_sweep)
+    at ``ntile``: each of its nt(nt+1)/2 pairs builds a W block of tsz^2
+    nvp^2 elements (nvir padded to nvp = nt tsz) by a GEMM over naux and
+    contracts it with tau over nvp^2, 2 (naux + nocc^2) FLOP an element;
+    the relayout reads and writes the block, beside one read of tau and
+    of the pair's two Ld tiles."""
+    isz = _itemsize(dtype)
+    tsz = -(-nvir // ntile)
+    nvp = ntile * tsz
+    w = tsz * tsz * nvp * nvp
+    flops = 2.0 * w * (naux + nocc * nocc)
+    moved = (2 * w + nocc * nocc * nvp * nvp + 2 * naux * tsz * nvp) * isz
+    return ntile * (ntile + 1) / 2 * (flops / _GEMM_FLOPS
+                                      + moved / _MOVE_BYTES)
+
+
+def plan_ladder_tiles(nocc, nvir, naux, dtype="float32", budget=None,
+                      vjp=False, device=None):
+    """Tile count per virtual axis the pair-tiled DF ladder runs at: of the
+    counts at or above the memory floor (plan_ladder_ntile, ``vjp``
+    included), the one with the least modelled sweep time
+    (ladder_sweep_model_s) whose tau contraction keeps at least
+    MIN_TAU_OUTPUTS outputs a pair.  A finer tiling halves fewer diagonal
+    blocks, so it builds less of W: (nt+1)/(2 nt) of the dense nvir^4 at
+    nvir divisible by nt.  The floor is returned where no finer count
+    qualifies."""
+    floor = plan_ladder_ntile(nocc, nvir, naux, dtype, budget, vjp, device)
+    best, best_s = floor, ladder_sweep_model_s(nocc, nvir, naux, floor,
+                                               dtype)
+    for ntile in range(floor + 1, nvir + 1):
+        tsz = -(-nvir // ntile)
+        if nocc * nocc * tsz * tsz < MIN_TAU_OUTPUTS:
+            break
+        t = ladder_sweep_model_s(nocc, nvir, naux, ntile, dtype)
+        if t < best_s:
+            best, best_s = ntile, t
+    return best
 
 
 def ccsd_working_set_bytes(nocc, nvir, naux, ntile=1, dtype="float32",

@@ -11,7 +11,7 @@ lib.logger; this module adds
   cc/lambda_ad, cc/ccsd_t, lib/device_diis) record of themselves; a
   read that blocks the host on the device is a span ``sync.<site>``;
 - ``count(name, n=1)``: a counter, for what no span counts (the (T)'s
-  tiles);
+  tiles, the W elements of the CCSD ladder);
 - ``session()``: the spans and counters of the last profiler session,
   resolved, for a reader such as the benchmark's per-layer metrics.
 

@@ -177,3 +177,86 @@ def test_fused_triples_tile_counts_its_bf16_parts(prec):
     t2T = torch.rand((12, 12, 9), dtype=torch.float32)
     parts = tc.w1_t2(t2T, tc.w1_mode(prec))
     assert parts.nbytes == t2T.nbytes * (1 if prec == "high" else 0.5)
+
+
+def _floor_check(shape, ntile, dtype, budget, vjp):
+    """plan_ladder_ntile's own test that one pair's block fits."""
+    nocc, nvir, naux = shape
+    isz = dtype.itemsize
+    persistent = (naux * nvir * nvir + naux * nocc * nvir
+                  + (7 if vjp else 4) * nocc * nocc * nvir * nvir) * isz
+    avail = max(budget - persistent, budget // 8)
+    tsz = -(-nvir // ntile)
+    return tsz * tsz * nvir * nvir * isz * (4 if vjp else 2) <= avail // 2
+
+
+@pytest.mark.parametrize("shape", [(5, 19, 84), (21, 243, 360),
+                                   (32, 424, 1112), (32, 424, 1216),
+                                   (10, 200, 500)])
+@pytest.mark.parametrize("gib", [4, 16, 64, 80])
+@pytest.mark.parametrize("vjp", [False, True])
+def test_ladder_tiles_at_or_above_the_memory_floor(shape, gib, vjp):
+    """plan_ladder_tiles never plans fewer tiles than plan_ladder_ntile,
+    its block passes the floor's own fit test wherever the floor's does,
+    and a count above the floor keeps the tau contraction's outputs."""
+    budget = gib * 2**30
+    for dtype in (torch.float32, torch.float64):
+        floor = memory.plan_ladder_ntile(*shape, dtype, budget=budget,
+                                         vjp=vjp)
+        nt = memory.plan_ladder_tiles(*shape, dtype, budget=budget, vjp=vjp)
+        assert nt >= floor
+        if _floor_check(shape, floor, dtype, budget, vjp):
+            assert _floor_check(shape, nt, dtype, budget, vjp)
+        if nt > floor:
+            tsz = -(-shape[1] // nt)
+            assert shape[0] ** 2 * tsz ** 2 >= memory.MIN_TAU_OUTPUTS
+            assert memory.ladder_sweep_model_s(*shape, nt, dtype) < \
+                memory.ladder_sweep_model_s(*shape, floor, dtype)
+
+
+def test_ladder_tiles_split_benzene_at_an_80gb_budget():
+    """At the benchmark's shapes on an 80 GB card (0.85 of it free, less
+    the DIIS ring) the floor is one tile for benzene/cc-pVTZ, the dense
+    ladder; the work rule splits it, and builds less of W."""
+    budget = 64 * 2**30
+    bz, w8 = (21, 243, 360), (32, 424, 1112)
+    assert memory.plan_ladder_ntile(*bz, budget=budget) == 1
+    nt = memory.plan_ladder_tiles(*bz, budget=budget)
+    assert nt > 1
+    assert memory.ladder_sweep_model_s(*bz, nt) < \
+        0.8 * memory.ladder_sweep_model_s(*bz, 1)
+    for vjp in (False, True):
+        assert memory.plan_ladder_tiles(*w8, budget=budget, vjp=vjp) >= \
+            memory.plan_ladder_ntile(*w8, budget=budget, vjp=vjp)
+
+
+def test_plan_solver_plans_by_work_and_an_explicit_ntile_wins():
+    from pyscf_mpcc_tpu_torch.examples import campaign as cp
+    nocc, nvir, naux = 21, 243, 360
+    n = nocc * nvir + (nocc * nvir) ** 2
+    f32, budget = torch.float32, 64 * 2**30
+    for vjp in (False, True):
+        kw = cp.plan_solver(n, nocc, nvir, naux, f32, budget, vjp=vjp)
+        edt = kw["diis_err_dtype"] or f32
+        ring = kw["diis_space"] * n * (f32.itemsize + edt.itemsize)
+        assert kw["ntile"] == memory.plan_ladder_tiles(
+            nocc, nvir, naux, f32, budget=budget - ring, vjp=vjp) > 1
+        assert cp.plan_solver(n, nocc, nvir, naux, f32, budget, vjp=vjp,
+                              ntile=1)["ntile"] == 1
+    assert cp.plan_solver(n, nocc, nvir, naux, f32, None)["ntile"] == 1
+
+
+def test_streamed_campaign_keeps_its_own_ntile(monkeypatch):
+    """The streamed Lvv ladder fetches more host bytes as ntile grows, so
+    its campaign passes its own count, which the work rule leaves."""
+    from pyscf_mpcc_tpu_torch.examples import w8aug_stream_certify as w8aug
+    for k in ("W8AUG_NTILE", "W8AUG_DIIS_SPACE", "W8AUG_DIIS_BACKEND"):
+        monkeypatch.delenv(k, raising=False)
+    nocc, nvir, naux = 32, 424, 1112
+    n = nocc * nvir + (nocc * nvir) ** 2
+    for lam in (False, True):
+        kw = w8aug._solver(n, nocc, nvir, naux, torch.float32, 64 * 2**30,
+                           lam=lam)
+        assert kw["ntile"] == w8aug.NTILE
+    assert memory.plan_ladder_tiles(nocc, nvir, naux,
+                                    budget=64 * 2**30) != w8aug.NTILE

@@ -17,6 +17,8 @@ the solver loops that record them, on the CPU.
 - ccsd_t.kernel counts its tiles, and with the fused engine's plain
   version records one ``triples.prep`` and one ``triples.launch`` a
   chunk.
+- rccsd.pair_ladder_sym counts the W elements its pairs build
+  (``ladder.w_elems``, tsz^2 nvp^2 a pair) inside a session only.
 
 The card's side (the clock of the device intervals against the
 profiler's kernels) is tests/test_torch_tracing_gpu.py.
@@ -215,7 +217,9 @@ def test_ccsd_kernel_spans_and_syncs(h2o):
                                 if s.name == "ccsd.diis"))
         assert _children(spans, diis) == DIIS_CHILDREN
         assert spans[i].device is not None
-    assert _syncs(spans) == 4 * ncyc + 2 and counts == {}
+    assert _syncs(spans) == 4 * ncyc + 2
+    # one ladder a cycle, at rccsd.kernel's one tile: nvir^4 W elements
+    assert counts == {"ladder.w_elems": ncyc * er.nvir ** 4}
     assert len({s.solve for s in spans}) == 1
 
 
@@ -260,6 +264,23 @@ def test_triples_counts_tiles_and_chunks(h2o, engine, chunk):
         assert names == ["triples.energy"]
 
 
+@pytest.mark.parametrize("ntile", [1, 2, 3, 5])
+def test_ladder_counts_the_w_elements_it_builds(ntile):
+    nvir = 11
+    g = torch.Generator().manual_seed(ntile)
+    tau = torch.randn((3, 3, nvir, nvir), generator=g, dtype=torch.float64)
+    Ld = torch.randn((7, nvir, nvir), generator=g, dtype=torch.float64)
+    tsz = -(-nvir // ntile)
+    nvp = ntile * tsz
+    want = sum(tsz * tsz * nvp * nvp
+               for a in range(ntile) for b in range(a + 1))
+    _, _, _, counts = _traced(lambda: rccsd.pair_ladder_sym(tau, Ld, ntile))
+    assert counts == {"ladder.w_elems": want}
+    # nothing is counted outside a session: the last one's count stays
+    rccsd.pair_ladder_sym(tau, Ld, ntile)
+    assert profiling.session()[1] == counts
+
+
 def test_trace_writes_the_program_rows(h2o, tmp_path):
     import json
     er, _, _ = h2o
@@ -272,6 +293,9 @@ def test_trace_writes_the_program_rows(h2o, tmp_path):
     dev = [e["name"] for e in prog if e["tid"] == 1]
     assert host.count("ccsd.cycle") == 2 and dev.count("ccsd.cycle") == 2
     assert "sync.gram" in host and "sync.gram" not in dev
-    assert not [e for e in doc["traceEvents"]
-                if e.get("pid") == profiling.PROGRAM_PID and e["ph"] == "C"]
+    # the counters: one sample of each total, the ladder's W elements of
+    # two one-tile cycles
+    assert [e["args"] for e in doc["traceEvents"]
+            if e.get("pid") == profiling.PROGRAM_PID and e["ph"] == "C"] \
+        == [{"ladder.w_elems": 2 * er.nvir ** 4}]
     assert any(e["name"].startswith("aten::") for e in doc["traceEvents"])
