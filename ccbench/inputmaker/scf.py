@@ -45,7 +45,7 @@ def geometry(atoms, seed, translation):
 def df_factors(mol, auxbasis, device):
     """B[P, mu, nu] = L^-1 (P|mu nu) with (P|Q) = L L^T, fp64 on device."""
     aux = Mole(atom=[[s, c] for s, c in zip(mol.symbols, mol.coords)],
-               basis=auxbasis, unit="bohr").build()
+               basis=auxbasis, unit="bohr", spin=mol.spin).build()
     j3c = torch.from_numpy(native.eri3c(mol, aux)).to(device)
     j2c = torch.from_numpy(native.eri2c(aux)).to(device)
     nao, naux = mol.nao, aux.nao
@@ -118,9 +118,19 @@ def make_inputs(cfg, seed, device):
     Returns a dict: B (naux, nao, nao), mo (nao, nmo - frozen) and fock_ao
     (nao, nao) as fp64 tensors on device; nocc (active occupied), frozen,
     nao, naux, e_scf, scf_cycles; and the seconds of the integrals, the
-    fitting and the SCF."""
+    fitting and the SCF.
+
+    The configuration's ``spin`` (2S, 0 where absent) chooses the SCF.  At
+    0 it is the closed-shell ``rhf`` above.  Otherwise it is the DF-UHF of
+    ``uscf.uhf``, and the keys that differ by spin are pairs, alpha first:
+    mo (C_a[:, frozen:], C_b[:, frozen:]), fock_ao (F_a, F_b) and nocc
+    (n_a - frozen, n_b - frozen), with ``frozen`` cut from each spin; s2,
+    the UHF's <S^2>, is added.  Every other key is as above."""
     t0 = time.perf_counter()
     atoms = geometry(cfg["atoms"], seed, cfg["translation_angstrom"])
+    if cfg.get("spin", 0):
+        from ccbench.inputmaker import uscf  # uscf builds on this module
+        return uscf.make_inputs(cfg, atoms, device, t0)
     mol = M(atom=atoms, basis=cfg["basis"])
     t1 = time.perf_counter()
     B = df_factors(mol, cfg["auxbasis"], device)
